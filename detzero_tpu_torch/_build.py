@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-All of `csrc/*.cu` compiles with one `nvcc` call into one shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds).  The
-library lands in `build/detzero_tpu_torch_kernels/<content hash>/` at the
+Each `csrc/*.cu` compiles in its own `nvcc` process, all started together,
+and one more `nvcc` links the objects into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds).  The library
+lands in `build/detzero_tpu_torch_kernels/<content hash>/` at the
 root of the checkout, is built at first use and reused while the sources and
 flags are unchanged.  Nothing here runs at import time.
 
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" \
     / "detzero_tpu_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libdetzero_tpu_torch_kernels.so"
 
 _P = ctypes.c_void_p
@@ -37,8 +38,18 @@ SIGNATURES = {
     # ny_in, nz, cin, b_in, ny_out, out_nz, cout, b_out, down, z_stride,
     # relu, stream
     "dz_rowpad_conv_fused": [_P] * 8 + [_I] * 11 + [_P],
+    # table, nbr, w, zmask, out,
+    # ny_in, nz, cin, b_in, ny_out, out_nz, cout, b_out, mode, z_stride,
+    # f32, stream
+    "dz_rowpad_conv": [_P] * 5 + [_I] * 11 + [_P],
+    # table, nbr, d_out, zmask, partial, out,
+    # ny_in, nz, cin, b_in, ny_out, out_nz, cout, b_out, down, z_stride,
+    # rows_per_chunk, stream
+    "dz_rowpad_conv_dw": [_P] * 6 + [_I] * 11 + [_P],
     # boxes_a, boxes_b, out, n, m, stream
     "dz_iou_bev": [_P] * 3 + [_I] * 2 + [_P],
+    # boxes_a, boxes_b, out, n, iou, stream
+    "dz_iou_bev_pairwise": [_P] * 3 + [_I] * 2 + [_P],
     # iou, valid, keep, k, thresh, stream
     "dz_nms_walk": [_P] * 3 + [_I, ctypes.c_float, _P],
 }
@@ -77,14 +88,28 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out.parent / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{src.stem}.{tag}.o") for src in cu]
+    cmds = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(cu, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    (out.parent / "ptxas.log").write_text("".join(logs))
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log[-8000:]}")
+    tmp = out.with_name(f"{out.name}.{tag}")
+    link = [nvcc_path(), "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr[-8000:]}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(link)}\n{proc.stderr[-8000:]}")
     os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink()
     return out
 
 

@@ -1,8 +1,11 @@
 // Rotated BEV IoU matrix: boxes_a (n, 5) x boxes_b (m, 5) -> (n, m) f32,
-// boxes as [x, y, dx, dy, heading].
+// boxes as [x, y, dx, dy, heading]; and the matched-pair overlap / IoU
+// (n, 5) x (n, 5) -> (n,) f32.
 //
 // Replaces detzero_tpu/ops/pallas_iou.py::boxes_iou_bev (_launch,
-// _iou_kernel, _overlap_tile, _clip_area).  The TPU kernel runs the
+// _iou_kernel, _overlap_tile, _clip_area) and the pairwise kernels of
+// _launch_pairwise (_overlap_tile_pairwise, _pairwise_iou_kernel).  The
+// TPU kernel runs the
 // Sutherland-Hodgman clip over a (128, 128) tile of pairs as vector ops with
 // eight polygon slots per pair; here one thread owns one pair and keeps its
 // polygon (at most 8 vertices) in registers.  The arithmetic follows
@@ -118,7 +121,41 @@ __global__ void iou_bev_kernel(const float* __restrict__ boxes_a,
   out[(size_t)i * m + j] = __fdiv_rn(inter, uni);
 }
 
+// Matched pairs (kernel K6, pallas_iou._launch_pairwise): pair i is
+// (boxes_a[i], boxes_b[i]); the intersection area, or with `iou` the IoU
+// with the same union clamp as above.
+__global__ void iou_bev_pairwise_kernel(const float* __restrict__ boxes_a,
+                                        const float* __restrict__ boxes_b,
+                                        float* __restrict__ out, int n,
+                                        int iou) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* a = boxes_a + (size_t)i * 5;
+  const float* b = boxes_b + (size_t)i * 5;
+  float ax[4], ay[4], bx[4], by[4];
+  corners(a, ax, ay);
+  corners(b, bx, by);
+  const float inter = clip_area(ax, ay, bx, by);
+  if (!iou) {
+    out[i] = inter;
+    return;
+  }
+  const float area_a = mul(a[2], a[3]), area_b = mul(b[2], b[3]);
+  const float uni = fmaxf(sub(add(area_a, area_b), inter), 1e-6f);
+  out[i] = __fdiv_rn(inter, uni);
+}
+
 }  // namespace
+
+DZ_EXPORT int dz_iou_bev_pairwise(const void* boxes_a, const void* boxes_b,
+                                  void* out, int n, int iou, void* stream) {
+  if (n == 0) return dz_launch_status();
+  const int threads = 128;
+  iou_bev_pairwise_kernel<<<(n + threads - 1) / threads, threads, 0,
+                            (cudaStream_t)stream>>>(
+      (const float*)boxes_a, (const float*)boxes_b, (float*)out, n, iou);
+  return dz_launch_status();
+}
 
 DZ_EXPORT int dz_iou_bev(const void* boxes_a, const void* boxes_b, void* out,
                          int n, int m, void* stream) {

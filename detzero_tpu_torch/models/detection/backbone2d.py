@@ -2,8 +2,10 @@
 blocks at strides (1, 2), each upsampled back (1x1 conv or transposed
 conv) and channel-concatenated.  Runs on cuDNN.
 
-The public boundary keeps the reference's (H, W, C) layout; inside, the map
-is an NCHW view in channels-last memory, so no copy enters or leaves.
+The public boundary keeps the reference's (H, W, C) layout, with an
+optional leading batch axis; inside, the map is an NCHW view in
+channels-last memory, so no copy enters or leaves.  In train mode every BN's
+statistics span N*H*W.
 flax's ConvTranspose does not flip its kernel and torch's does: the
 converter flips it spatially (convert.py).
 """
@@ -56,8 +58,10 @@ class BaseBEVBackbone(nn.Module):
             self.levels.append((convs, up, bn))
 
     def forward(self, x_hwc):
-        """(H, W, C) -> (H', W', sum(num_upsample_filters))."""
-        x = x_hwc.permute(2, 0, 1)[None]
+        """([N,] H, W, C) -> ([N,] H', W', sum(num_upsample_filters))."""
+        if x_hwc.ndim == 3:
+            return self.forward(x_hwc[None])[0]
+        x = x_hwc.movedim(-1, 1)
         ups = []
         for convs, up, bn in self.levels:
             for name in convs:
@@ -65,4 +69,4 @@ class BaseBEVBackbone(nn.Module):
             u = getattr(self, up)(x)
             ups.append(F.relu(getattr(self, bn)(u, channel_dim=1)))
         out = torch.cat(ups, 1) if len(ups) > 1 else ups[0]
-        return out[0].permute(1, 2, 0)
+        return out.movedim(1, -1)

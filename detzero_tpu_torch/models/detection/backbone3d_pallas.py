@@ -1,9 +1,20 @@
-"""Sparse residual 3D backbone on the row-padded pillar layout, eval mode
-(port of the reference's backbone3d_pallas.py).
+"""Sparse residual 3D backbone on the row-padded pillar layout (port of the
+reference's backbone3d_pallas.py).
 
-All 20 3x3x3 convs run through kernel K2 (`ops/rowpad_conv.py`), which
-applies the folded BN, the residual, the ReLU and the zmask in its epilogue;
-the final (3,1,1) z-conv and the BEV densify run on the compact table.
+Eval mode: all 20 3x3x3 convs run through kernel K2 (`ops/rowpad_conv.py`),
+which applies the folded BN, the residual, the ReLU and the zmask in its
+epilogue.  Train mode: each conv is `RowpadConv` (kernel K4 forward, K4 and
+K5 backward) followed by the masked batch-statistics BN, the ReLU, the
+zmask and the residual as torch ops (`backbone3d_pallas.py:162-177`).  The
+final (3,1,1) z-conv and the BEV densify run on the compact table.
+
+A batch runs as one table: the samples' row-padded tables and neighbour
+maps are stacked along the BEV-row axis (`stack_plans`), so each conv is one
+launch for the batch and each BN's statistics span the batch, as the
+reference's psum over the vmapped batch axis gives them.  This is exact:
+every level has ny_in = 2 * ny_out, and each sample's maps already mark
+absent every tap that would cross its first or last row.
+
 Module names follow flax's auto-names, so `convert.py` maps the reference's
 param tree one to one.
 """
@@ -18,7 +29,7 @@ from torch import nn
 from detzero_tpu_torch.models.detection.backbone3d_pillar import plan_grids
 from detzero_tpu_torch.models.layers import AutoNames, MaskedBatchNorm
 from detzero_tpu_torch.ops import pillars
-from detzero_tpu_torch.ops.rowpad_conv import rowpad_conv_fused
+from detzero_tpu_torch.ops.rowpad_conv import RowpadConv, rowpad_conv_fused
 
 
 def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
@@ -50,10 +61,33 @@ def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
     return out
 
 
+_RP_STACKED = ("rp_zmask", "rp_nbr", "rp_down_nbr", "rp_up_nbr")
+
+
+def stack_plans(plans):
+    """Per-sample rowpad plans -> one plan for the batch: levels 0..3 carry
+    the row-padded zmasks and neighbour maps stacked along the BEV-row axis
+    (ranks stay row-local, so the maps need no offset), level 3 the compact
+    slots of every sample into the stacked table, and the final level the
+    samples' compact zmasks concatenated plus their cells and masks stacked
+    (B, MP) for the per-sample densify."""
+    out = [{k: torch.cat([p[lvl][k] for p in plans]) for k in _RP_STACKED
+            if k in plans[0][lvl]} for lvl in range(4)]
+    zm3 = plans[0][3]["rp_zmask"]
+    rows = zm3.shape[0] * zm3.shape[2]          # slots of one sample at L3
+    out[3]["rp_slot"] = torch.cat([p[3]["rp_slot"] + b * rows
+                                   for b, p in enumerate(plans)])
+    out[3]["rp_keep"] = torch.cat([p[3]["rp_keep"] for p in plans])
+    out.append({"zmask": torch.cat([p[4]["zmask"] for p in plans]),
+                "cells": torch.stack([p[4]["cells"] for p in plans]),
+                "mask": torch.stack([p[4]["mask"] for p in plans])})
+    return out
+
+
 class SparseConvBNReLU(nn.Module):
-    """One sparse conv + eval BN (+ ReLU).  kernel_volume 27: the fused
-    row-padded conv (kernel K2); 3: the (3,1,1) z-stride conv on the compact
-    table."""
+    """One sparse conv + BN (+ ReLU).  kernel_volume 27: the row-padded conv
+    (eval: kernel K2 with the folded BN; train: `RowpadConv` and the masked
+    batch BN); 3: the (3,1,1) z-stride conv on the compact table."""
 
     def __init__(self, cin, features, kernel_volume, act=True, device=None):
         super().__init__()
@@ -63,21 +97,45 @@ class SparseConvBNReLU(nn.Module):
         self.act = act
 
     def forward(self, x, zmask, nbr=None, *, nz=None, out_nz=None,
-                mode="subm", z_stride=1, residual=None, fuse_relu=False):
+                mode="subm", z_stride=1, residual=None, fuse_relu=False,
+                nbr_up=None, zmask_in=None):
+        """zmask: the output level's; nbr_up (train, 'down'): the transpose
+        map for the input gradient; zmask_in (train): the input level's
+        zmask, where the input gradient is needed (default: zmask for
+        'subm')."""
         kv, cin, cout = self.kernel.shape
         if kv == 3:
             # x: compact (MP, nz, C); zmask: the output level's compact zmask
             y = pillars.z_conv(x.float(), zmask,
                                self.kernel.to(x.dtype).float(), 2, out_nz)
-            y = self.MaskedBatchNorm_0(y).to(x.dtype)
+            m = zmask[:, :y.shape[1], None]
+            y = self.MaskedBatchNorm_0(y, mask=m).to(x.dtype)
             if self.act:
                 y = torch.relu(y)
-            return torch.where(zmask[:, :y.shape[1], None], y, 0.0)
-        sc, bi = self.MaskedBatchNorm_0.affine()
-        return rowpad_conv_fused(
-            x, nbr, self.kernel, sc, bi, zmask, residual, nz=nz,
-            cin=cin, cout=cout, z_stride=z_stride, out_nz=out_nz, mode=mode,
-            relu=self.act or fuse_relu)
+            return torch.where(m, y, 0.0)
+        if not self.training:
+            sc, bi = self.MaskedBatchNorm_0.affine()
+            return rowpad_conv_fused(
+                x, nbr, self.kernel, sc, bi, zmask, residual, nz=nz,
+                cin=cin, cout=cout, z_stride=z_stride, out_nz=out_nz,
+                mode=mode, relu=self.act or fuse_relu)
+        onz = out_nz if out_nz is not None else nz
+        if zmask_in is None and mode == "subm":
+            zmask_in = zmask
+        y = RowpadConv.apply(x, self.kernel, nbr,
+                             nbr if nbr_up is None else nbr_up,
+                             zmask[:, :onz], zmask_in, nz, cin, cout,
+                             z_stride, onz, mode)
+        ny_o, _, b = y.shape
+        m4 = zmask[:, :onz, None, :]
+        y = self.MaskedBatchNorm_0(y.reshape(ny_o, onz, cout, b),
+                                   channel_dim=2, mask=m4)
+        if self.act:
+            y = torch.relu(y)
+        y = torch.where(m4, y, 0.0).reshape(ny_o, onz * cout, b)
+        if residual is not None:
+            y = torch.relu(y + residual.to(y.dtype))
+        return y
 
 
 class SparseBasicBlock(nn.Module):
@@ -99,8 +157,8 @@ class SparseBasicBlock(nn.Module):
 
 class PallasResBackbone8x(nn.Module):
     """[16, 32, 64, 128]-channel sparse residual backbone with 8x BEV
-    downsampling.  forward(rp_feats (ny, nz*F, B), plan with rowpad) ->
-    BEV map (H/8, W/8, C*nz_final)."""
+    downsampling.  forward(rp_feats (n*ny, nz*F, B) of n samples stacked,
+    `stack_plans` of their plans) -> BEV maps (n, H/8, W/8, C*nz_final)."""
 
     def __init__(self, grid_zyx, in_features, channels: Sequence[int] = (
             16, 32, 64, 128), blocks_per_level=2, residual=True,
@@ -145,14 +203,16 @@ class PallasResBackbone8x(nn.Module):
             if lvl < 3:
                 x = getattr(self, self.downs[lvl])(
                     x, plan[lvl + 1]["rp_zmask"], e["rp_down_nbr"], nz=nz,
-                    out_nz=grids[lvl + 1][0], mode="down", z_stride=2)
+                    out_nz=grids[lvl + 1][0], mode="down", z_stride=2,
+                    nbr_up=e.get("rp_up_nbr"), zmask_in=e["rp_zmask"])
         l3, final = plan[3], plan[4]
         nz3, c3 = grids[3][0], x.shape[1] // grids[3][0]
-        mp3 = l3["cells"].shape[0]
+        n, mp3 = final["cells"].shape
         xc = pillars.from_rowpad(x, l3["rp_slot"], l3["rp_keep"]).reshape(
-            mp3, nz3, c3)
+            n * mp3, nz3, c3)
         xz = getattr(self, self.zconv)(xc, final["zmask"],
                                        out_nz=grids[4][0])
-        return pillars.densify_pillars(xz.reshape(mp3, -1), final["cells"],
-                                       final["mask"],
-                                       (grids[4][1], grids[4][2]))
+        xz = xz.reshape(n, mp3, -1)
+        return torch.stack([pillars.densify_pillars(
+            xz[b], final["cells"][b], final["mask"][b],
+            (grids[4][1], grids[4][2])) for b in range(n)])

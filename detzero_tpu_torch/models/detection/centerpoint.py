@@ -1,10 +1,20 @@
-"""CenterPoint inference, eval mode (port of the reference's centerpoint.py:
-the `CenterPointNet` network and the `CenterPoint` wrapper in one module).
+"""CenterPoint (port of the reference's centerpoint.py: the `CenterPointNet`
+network and the `CenterPoint` wrapper in one module), inference and the
+first-stage training loss.
 
-The path of one sample: pillar table (stream mode) -> stream VFE (kernel K1)
--> plan and row-padded neighbour maps -> sparse 3D backbone (kernel K2, 20
-convs) -> z-conv and densify -> 2D BEV backbone and center head (cuDNN) ->
-decode and rotated NMS (kernel K3 and the NMS walk kernel).
+Inference, one sample at a time: pillar table (stream mode) -> stream VFE
+(kernel K1) -> plan and row-padded neighbour maps -> sparse 3D backbone
+(kernel K2, 20 convs) -> z-conv and densify -> 2D BEV backbone and center
+head (cuDNN) -> decode and rotated NMS (kernel K3 and the NMS walk kernel).
+
+Training, a batch at once (`loss`): each sample's table, VFE (K1) and plan,
+then the samples stacked along the BEV-row axis (`stack_plans`) -> the 3D
+backbone in train mode (20 forward convs of kernel K4; backward: 19 K4
+input gradients, the stem has none, and 20 K5 weight gradients) with masked
+batch BN over the whole batch -> 2D backbone and head with BN over N*H*W ->
+gaussian targets and the focal + L1 + IoU-branch loss (kernel K6 for the
+matched-pair IoU, one launch per head).  `predict` always runs eval mode and
+`loss` train mode, as the reference's separate eval and train networks do.
 
 Numerics on the card: importing this module sets
 `torch.backends.cuda.matmul.allow_tf32 = False` and
@@ -13,12 +23,13 @@ run in TF32.  The model computes in its `dtype` (bfloat16 on the card, as the
 reference's flagship does); parameters and BN statistics stay float32 and
 the BN affine is folded in float32.
 
-The config is a plain dict with the reference's keys.  Only the inference
-path is ported: SECOND_STAGE and training wait for later work.
+The config is a plain dict with the reference's keys.  SECOND_STAGE is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Mapping
 
 import torch
@@ -26,13 +37,14 @@ from torch import nn
 
 from detzero_tpu_torch.models.detection.backbone2d import BaseBEVBackbone
 from detzero_tpu_torch.models.detection.backbone3d_pallas import (
-    PallasResBackbone8x, SparseConvBNReLU, augment_plan_rowpad,
+    PallasResBackbone8x, SparseConvBNReLU, augment_plan_rowpad, stack_plans,
 )
 from detzero_tpu_torch.models.detection.backbone3d_pillar import (
     build_pillar_plan, plan_grids,
 )
 from detzero_tpu_torch.models.detection.center_head import (
-    HM_BIAS, CenterHead, decode_predictions,
+    HM_BIAS, CenterHead, assign_targets, center_head_loss,
+    decode_predictions,
 )
 from detzero_tpu_torch.models.layers import trunc_normal_fan_in
 from detzero_tpu_torch.ops.pillars import build_pillar_table
@@ -66,6 +78,8 @@ class CenterPoint(nn.Module):
             raise NotImplementedError("only the 'principal' site mode is "
                                       "ported")
         self.dtype = dtype
+        self.max_objs = int(max_objs)
+        self.with_velocity = bool(cfg.get("WITH_VELOCITY", True))
         self.pc_range = tuple(float(v) for v in pc_range)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         nx = round((self.pc_range[3] - self.pc_range[0]) / self.voxel_size[0])
@@ -98,7 +112,7 @@ class CenterPoint(nn.Module):
             device=device)
         self.center_head = CenterHead(
             256 * 2, self.class_ids_each_head,
-            with_velocity=bool(cfg.get("WITH_VELOCITY", True)),
+            with_velocity=self.with_velocity,
             with_iou=bool(cfg.get("WITH_IOU", True)), device=device)
         self.eval()
 
@@ -146,10 +160,25 @@ class CenterPoint(nn.Module):
         plan = build_pillar_plan(table, self.grid_zyx, self.pillar_capacities)
         return augment_plan_rowpad(plan, self.grid_zyx, self.row_budget)
 
+    def prepare(self, points, points_valid):
+        """points (N, P, F), points_valid (N, P) -> (rp_feats, plan): each
+        sample's table, VFE (one K1 launch) and plan, stacked along the
+        BEV-row axis into one (N*ny, nz*F, B) table and one plan."""
+        feats, plans = [], []
+        for p, v in zip(points, points_valid):
+            table = self.build_table(p, v)
+            feats.append(self.vfe(table["stream"]))
+            plans.append(self.build_plan(table))
+        return torch.cat(feats), stack_plans(plans)
+
     def bev_head(self, spatial_features):
-        """(H, W, C) BEV map -> per-head prediction dicts."""
+        """([N,] H, W, C) BEV maps -> per-head prediction dicts."""
         return self.center_head(self.backbone2d(
             spatial_features.to(self.dtype)))
+
+    def network(self, rp_feats, plan):
+        """`prepare`'s output -> per-head dicts of (N, H, W, C) maps."""
+        return self.bev_head(self.backbone3d(rp_feats, plan))
 
     def decode(self, preds, **decode_kwargs):
         return decode_predictions(
@@ -157,13 +186,23 @@ class CenterPoint(nn.Module):
             self.feature_map_stride, self.voxel_size, self.pc_range,
             **decode_kwargs)
 
+    @contextlib.contextmanager
+    def _mode(self, train: bool):
+        was = self.training
+        self.train(train)
+        try:
+            yield
+        finally:
+            self.train(was)
+
     @torch.no_grad()
     def forward_one(self, points, points_valid):
-        """One sample's raw head outputs (list of dicts of (H, W, C))."""
-        table = self.build_table(points, points_valid)
-        rp_feats = self.vfe(table["stream"])
-        plan = self.build_plan(table)
-        return self.bev_head(self.backbone3d(rp_feats, plan))
+        """One sample's raw head outputs in eval mode (list of dicts of
+        (H, W, C))."""
+        with self._mode(False):
+            preds = self.network(*self.prepare(points[None],
+                                               points_valid[None]))
+        return [{k: v[0] for k, v in h.items()} for h in preds]
 
     @torch.no_grad()
     def predict(self, points, points_valid, **decode_kwargs):
@@ -172,3 +211,27 @@ class CenterPoint(nn.Module):
         outs = [self.decode(self.forward_one(p, v), **decode_kwargs)
                 for p, v in zip(points, points_valid)]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def targets(self, gt_boxes, gt_classes, gt_valid):
+        """Per-head targets of a batch (gt_boxes (N, M, 7|9), gt_classes
+        (N, M) global ids, gt_valid (N, M))."""
+        return assign_targets(
+            gt_boxes, gt_classes, gt_valid, self.class_ids_each_head,
+            self.bev_hw, self.feature_map_stride, self.voxel_size,
+            self.pc_range, self.max_objs, with_velocity=self.with_velocity)
+
+    def head_loss(self, preds, targets):
+        """-> (per-sample loss (N,), aux dict of (N,))."""
+        return center_head_loss(preds, targets, self.bev_hw,
+                                self.feature_map_stride, self.voxel_size,
+                                self.pc_range)
+
+    def loss(self, points, points_valid, gt_boxes, gt_classes, gt_valid):
+        """Training loss of a batch in train mode: (mean over samples of the
+        per-sample loss, aux dict of per-sample terms).  Updates the BN
+        running statistics."""
+        with self._mode(True):
+            preds = self.network(*self.prepare(points, points_valid))
+            per_sample, aux = self.head_loss(
+                preds, self.targets(gt_boxes, gt_classes, gt_valid))
+        return per_sample.mean(), aux

@@ -1,16 +1,21 @@
-"""Rotated BEV IoU matrix (kernel K3): (N, 5) x (M, 5) -> (N, M), boxes as
-[x, y, dx, dy, heading].
+"""Rotated BEV IoU, boxes as [x, y, dx, dy, heading]:
 
-Replaces `detzero_tpu/ops/pallas_iou.py::boxes_iou_bev`.  The CUDA kernel is
-`csrc/iou_bev.cu`: one thread per pair, the clipped polygon (at most 8
-vertices) in registers.  What bounds it on the H100 is arithmetic, about
-1.5k flops per pair; see the source.
+  * kernel K3, the IoU matrix (N, 5) x (M, 5) -> (N, M) (`boxes_iou_bev`,
+    replaces `detzero_tpu/ops/pallas_iou.py::boxes_iou_bev`);
+  * kernel K6, matched pairs (N, 5) x (N, 5) -> (N,): intersection areas
+    (`boxes_overlap_bev_pairwise`) or IoU (`boxes_iou_bev_pairwise`),
+    replacing `pallas_iou._launch_pairwise`.
 
-Both versions follow `pallas_iou._clip_area` step for step: clip A's quad by
+The CUDA kernels are in `csrc/iou_bev.cu`: one thread per pair, the clipped
+polygon (at most 8 vertices) in registers.  What bounds them on the H100 is
+arithmetic, about 1.5k flops per pair; see the source.
+
+All versions follow `pallas_iou._clip_area` step for step: clip A's quad by
 B's four half-planes (Sutherland-Hodgman, on-edge tolerance 1e-3, |denom|
 guard 1e-8, order-keeping compaction), shoelace area, union clamped at
-1e-6.  `boxes_iou_bev` launches the kernel for CUDA tensors and takes the
-plain version for CPU tensors.  `LAUNCHES` counts kernel launches.
+1e-6.  The wrappers launch the kernels for CUDA tensors and take the plain
+versions for CPU tensors.  `LAUNCHES` counts K3's launches,
+`PAIRWISE_LAUNCHES` K6's.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 from detzero_tpu_torch import _build
 
 LAUNCHES = 0
+PAIRWISE_LAUNCHES = 0
 
 _CAP = 8
 _EPS = 1e-8
@@ -118,3 +124,49 @@ def boxes_iou_bev(boxes_a, boxes_b):
     LAUNCHES += 1
     _build.check(rc, "dz_iou_bev")
     return out
+
+
+def boxes_overlap_bev_pairwise_plain(boxes_a, boxes_b):
+    """(N, 5) x (N, 5) -> (N,) intersection areas of the matched pairs."""
+    a = boxes_a[:, :5].float()
+    b = boxes_b[:, :5].float()
+    return _clip_area(_corners(a), _corners(b), (a.shape[0],))
+
+
+def boxes_iou_bev_pairwise_plain(boxes_a, boxes_b):
+    a = boxes_a[:, :5].float()
+    b = boxes_b[:, :5].float()
+    inter = boxes_overlap_bev_pairwise_plain(a, b)
+    return inter / torch.clamp(a[:, 2] * a[:, 3] + b[:, 2] * b[:, 3] - inter,
+                               min=1e-6)
+
+
+def _pairwise(boxes_a, boxes_b, iou):
+    if boxes_a.device.type == "cpu":
+        return (boxes_iou_bev_pairwise_plain if iou
+                else boxes_overlap_bev_pairwise_plain)(boxes_a, boxes_b)
+    a = boxes_a[:, :5].float().contiguous()
+    b = boxes_b[:, :5].float().contiguous()
+    _build.require_cuda("boxes_bev_pairwise", a, b)
+    if a.shape != b.shape:
+        raise ValueError(f"boxes_bev_pairwise: {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} are not matched pairs")
+    out = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
+    rc = _build.lib().dz_iou_bev_pairwise(a.data_ptr(), b.data_ptr(),
+                                          out.data_ptr(), a.shape[0],
+                                          int(iou),
+                                          _build.stream_ptr(a.device))
+    global PAIRWISE_LAUNCHES
+    PAIRWISE_LAUNCHES += 1
+    _build.check(rc, "dz_iou_bev_pairwise")
+    return out
+
+
+def boxes_overlap_bev_pairwise(boxes_a, boxes_b):
+    """Kernel K6 (overlap) on CUDA tensors, its plain version on CPU."""
+    return _pairwise(boxes_a, boxes_b, iou=False)
+
+
+def boxes_iou_bev_pairwise(boxes_a, boxes_b):
+    """Kernel K6 (IoU) on CUDA tensors, its plain version on CPU."""
+    return _pairwise(boxes_a, boxes_b, iou=True)

@@ -15,7 +15,7 @@ from detzero_tpu.core.config import Config
 from detzero_tpu.models.detection.backbone2d import BaseBEVBackbone
 from detzero_tpu.models.detection.center_head import CenterHead
 from detzero_tpu.models.detection.centerpoint import CenterPoint as JaxCP
-from detzero_tpu_torch.convert import convert_centerpoint
+from detzero_tpu_torch.convert import convert_centerpoint, to_flax
 from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
 from detzero_tpu_torch.models.layers import Conv2dSame
 
@@ -78,6 +78,25 @@ def test_every_leaf_converted(converted):
     kt = v["params"]["backbone2d"]["ConvTranspose_0"]["kernel"]
     assert np.array_equal(sd["backbone2d.ConvTranspose_0.weight"].numpy(),
                           kt[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def test_round_trip_and_params_only(converted):
+    """to_flax undoes the conversion leaf by leaf; a params-only tree (the
+    shape of the reference's gradients) converts to the parameter names."""
+    v, model = converted
+    back = to_flax(convert_centerpoint(v, model))
+    ref = jax.tree_util.tree_flatten_with_path(v)[0]
+    got = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in ref] == [p for p, _ in got]
+    for (path, a), (_, b) in zip(ref, got):
+        assert np.array_equal(np.asarray(a), b), path
+    params = convert_centerpoint({"params": v["params"]}, model)
+    assert set(params) == {n for n, _ in model.named_parameters()}
+    ref = jax.tree_util.tree_flatten_with_path({"params": v["params"]})[0]
+    got = jax.tree_util.tree_flatten_with_path(to_flax(params))[0]
+    assert [p for p, _ in ref] == [p for p, _ in got]
+    for (path, a), (_, b) in zip(ref, got):
+        assert np.array_equal(np.asarray(a), b), path
 
 
 def test_converter_raises_on_mismatch(converted):
