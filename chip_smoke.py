@@ -25,10 +25,32 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      launch counts of every step, ms/step over 3 timed steps after one
      warm-up step, per-stage times, peak memory; and the tiny-geometry
      training loss and gradient on the card (float32 and bf16) against the
-     CPU's on two draws.
-The line before the last carries every kernel's numbers as JSON (launches:
-the counted predict frame's plus the counted training step's, each path's
-own in `launches_by_path`); the last line is {"ok": true, "device": {...}}.
+     CPU's on two draws;
+  7. two-stage predict: the flagship with the PDV second stage
+     (centerpoint_pdv_5sweeps.yaml: ROI_BUDGET 128, ROI_GRID_SIZE 6,
+     ROI_ATTENTION) at batch 1 on the same input: launch counts of one
+     frame, frames/s over 5 timed frames after 2 warm-up frames, per-stage
+     times with the RoI head's, peak memory;
+  8. two-stage training step at batch 2 with 500 GT slots: K7 (the N x M
+     rotated overlap of the RoI targets) against its plain version on the
+     step's own 128 RoIs x 500 GT boxes and on 1000 x 1000 boxes, then
+     launch counts of every step, ms/step over 3 timed steps after one
+     warm-up step, per-stage times with the RoI targets and loss, peak
+     memory, finite loss and gradient norm;
+  9. the tiny two-stage model, card against CPU: predict (first-stage
+     heads, multi-scale tables, the RoI head on the CPU's proposals), the
+     float32 training loss and its RoI terms, and the RoI head's gradient
+     from its own loss on the CPU's proposals.
+Per-stage times are CUDA events that the model's and the trainer's
+`stage_hook` records at their own stage boundaries.
+The line before the card's line carries every kernel's numbers as JSON:
+launches summed over the four counted paths, each path's own in
+`launches_by_path`; `bound_ms`, the least time the card could take for the
+timed work (the larger of its bytes, each input read once and each output
+written once, over 3.35 TB/s, and its operations over the card's peak for
+their type, counted from this run's inputs), and `bound_by`; `library_ms`,
+null: no single PyTorch call computes any of these functions.  The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -61,6 +83,12 @@ TINY_KW = dict(pc_range=(-6.4, -6.4, -2.0, 6.4, 6.4, 2.0),
 # the tiny training check keeps the whole cloud in the pillar budgets, as
 # tests/test_torch_train_step.py does
 TINY_TRAIN_CFG = dict(TINY_CFG, VOXEL_CAPACITIES=(2048, 1024, 512, 256))
+# the PDV second stage: configs/det_model_cfgs/centerpoint_pdv_5sweeps.yaml
+# on the flagship, and as tests/test_pdv_head.py sizes it on the tiny one
+FLAGSHIP2_CFG = dict(FLAGSHIP_CFG, SECOND_STAGE=True, ROI_BUDGET=128,
+                     ROI_GRID_SIZE=6, ROI_ATTENTION=True)
+TINY2_CFG = dict(TINY_TRAIN_CFG, SECOND_STAGE=True, ROI_BUDGET=16,
+                 ROI_GRID_SIZE=3, ROI_ATTENTION=True)
 # OPTIMIZATION of configs/det_model_cfgs/centerpoint_5sweeps.yaml
 FLAGSHIP_OPT = {"OPTIMIZER": "adam_onecycle", "LR": 0.003,
                 "WEIGHT_DECAY": 0.01, "GRAD_NORM_CLIP": 10.0,
@@ -84,6 +112,8 @@ KERNELS = {
                        "detzero_tpu/ops/pallas_pillar.py:702"),
     "boxes_iou_bev_pairwise": ("detzero_tpu_torch/csrc/iou_bev.cu",
                                "detzero_tpu/ops/pallas_iou.py:208"),
+    "boxes_overlap_bev": ("detzero_tpu_torch/csrc/iou_bev.cu",
+                          "detzero_tpu/ops/pallas_iou.py:316"),
 }
 # kernel name -> (module of its wrapper, launch counter)
 COUNTERS = {
@@ -94,7 +124,24 @@ COUNTERS = {
     "rowpad_conv": ("rowpad_conv", "CONV_LAUNCHES"),
     "rowpad_conv_dw": ("rowpad_conv", "DW_LAUNCHES"),
     "boxes_iou_bev_pairwise": ("iou_bev", "PAIRWISE_LAUNCHES"),
+    "boxes_overlap_bev": ("iou_bev", "OVERLAP_LAUNCHES"),
 }
+# H100 SXM (NVIDIA's data sheet): device memory rate and dense peaks
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+# float32 operations of the rotated-box overlap that the data need (a
+# compare, abs, sqrt, sin or cos counts as one), from the body of
+# csrc/iou_bev.cu: per box once, the 4 corners (sin, cos, 2 half extents,
+# 10 per corner), the circumradius (3 + sqrt) and the area;
+# per pair, the circumcircle test (centre offset 2, its square 3, radii
+# sum 1, square 1, compare 1); per edge of B that meets live vertices, the
+# edge vector; per live vertex, the side test (5), its compare and the
+# crossing test; per crossing, denom, guard (2), t and the point (6); per
+# vertex of the final polygon, the shoelace term (4), and the abs and the
+# half; with the IoU epilogue, the union and the divide (4) per pair whose
+# circles meet.  Pairs whose circles do not meet need the test only.
+CLIP_OPS = dict(box=49, pair=8, edge=2, vertex=7, crossing=10,
+                area_vertex=4, area=2, iou=4)
 
 
 def entry_points(n_points=160_000, seed=0, batch=1):
@@ -161,6 +208,116 @@ def max_abs(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, ops, kind):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the card's peak for their type."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_bound(rec, n_bytes, ops, kind):
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, ops, kind)
+    return rec
+
+
+def clip_ops(a, b, pairwise=False, iou=False):
+    """CLIP_OPS summed over these BEV boxes (N, 5) x (M, 5) (or N matched
+    pairs): the live vertices and crossings at each edge are those the
+    plain clip traces on these inputs."""
+    import torch
+    from detzero_tpu_torch.ops import iou_bev
+
+    ca, cb = iou_bev._corners(a.float()), iou_bev._corners(b.float())
+    ra = 0.5 * torch.hypot(a[:, 2], a[:, 3])
+    rb = 0.5 * torch.hypot(b[:, 2], b[:, 3])
+    if pairwise:
+        shape = (a.shape[0],)
+        d2 = ((a[:, :2] - b[:, :2]) ** 2).sum(1)
+        r = ra + rb
+    else:
+        shape = (a.shape[0], b.shape[0])
+        ca = [(x[:, None], y[:, None]) for x, y in ca]
+        cb = [(x[None, :], y[None, :]) for x, y in cb]
+        d2 = ((a[:, None, :2] - b[None, :, :2]) ** 2).sum(-1)
+        r = ra[:, None] + rb[None, :]
+    live = []
+    iou_bev._clip_area(ca, cb, shape, live=live)
+    c = CLIP_OPS
+    meet = (d2 <= r * r).double()
+    per_pair = c["pair"] + meet * c["iou"] * iou
+    for n_in, n_kept, n_out in live:
+        per_pair = per_pair + meet * ((n_in > 0) * c["edge"]
+                                      + n_in * c["vertex"]
+                                      + (n_out - n_kept) * c["crossing"])
+    n = live[-1][2]
+    per_pair = per_pair + meet * (n >= 3) * (c["area"] + n * c["area_vertex"])
+    n_boxes = a.shape[0] + (0 if a is b else b.shape[0])
+    return float(per_pair.sum()) + c["box"] * n_boxes
+
+
+def sum_cases(cases):
+    """One record for a kernel timed at several shapes: the worst error,
+    the summed times and bounds, bound_by of the largest bound."""
+    top = max(cases, key=lambda c: c["bound_ms"])
+    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+                ms=sum(c["ms"] for c in cases),
+                plain_ms=sum(c["plain_ms"] for c in cases),
+                bound_ms=sum(c["bound_ms"] for c in cases),
+                bound_by=top["bound_by"], cases=cases)
+
+
+def conv_pairs(nbr, zm_in, zm_out, nz, mode, z_stride):
+    """The (occupied output site, occupied input tap) pairs of one row-pad
+    conv on these maps: each is one cin x cout product, all the work the
+    conv (and its weight gradient) needs.  zm_in is the input table's
+    zmask (nz // 2 planes in 'up' mode)."""
+    import torch
+    from detzero_tpu_torch.ops.pillars import zconv_matmul
+    from detzero_tpu_torch.ops.rowpad_conv import _gather_taps
+
+    occ = _gather_taps(zm_in.to(torch.float32), nbr, nz=nz, cin=1,
+                       mode=mode)
+    onz = zm_out.shape[1]
+    taps = zconv_matmul(occ, torch.ones((3, 9, 1), device=occ.device),
+                        z_stride, onz)[..., 0]            # (N, onz)
+    out = zm_out.permute(0, 2, 1).reshape(-1, onz)
+    return float((taps * out).sum())
+
+
+def conv_work(table, nbr, zm_in, zm_out, nz, cin, cout, mode, z_stride,
+              extra_bytes):
+    """(bytes, ops) of one conv: the table, the map, the bf16 weight, the
+    zmask as the kernel reads it (one byte a site) and `extra_bytes` (the
+    output and what else the kernel reads), and 2 * cin * cout operations
+    per pair."""
+    ops = 2.0 * cin * cout * conv_pairs(nbr, zm_in, zm_out, nz, mode,
+                                        z_stride)
+    n_bytes = nbytes(table, nbr) + 27 * cin * cout * 2 \
+        + zm_out.numel() + extra_bytes
+    return n_bytes, ops
+
+
+def clustered_boxes(device, n=200, per=5, seed=2):
+    """n clusters of `per` jittered BEV boxes (real overlaps)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    base = torch.rand((n, 1, 5), generator=g)
+    base = base * torch.tensor([80.0, 80.0, 4.0, 2.0, 6.283]) \
+        + torch.tensor([-40.0, -40.0, 1.0, 1.0, -3.1416])
+    jit = torch.randn((n, per, 5), generator=g) \
+        * torch.tensor([0.3, 0.3, 0.2, 0.1, 0.2])
+    boxes = (base + jit).reshape(n * per, 5)
+    boxes[:, 2:4] = boxes[:, 2:4].abs() + 0.2
+    return boxes.to(device)
+
+
 def masked_table(zmask, c, gen):
     """A random bf16 (ny, nz*c, B) table of a level, zero at the sites its
     zmask (ny, nz, B) marks empty, as the model's tables are."""
@@ -173,10 +330,12 @@ def masked_table(zmask, c, gen):
 
 
 def build_model(cfg, kw, dtype, device, seed=0):
+    """Random weights drawn on the CPU from `seed` (the same on every
+    device), then moved to `device`."""
     import torch
     from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
 
-    model = CenterPoint(cfg, 3, dtype=dtype, **kw)
+    model = CenterPoint(cfg, 3, dtype=dtype, device="cpu", **kw)
     model.init_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
 
@@ -213,7 +372,11 @@ def check_kernels(model, pts, pv, device):
     if not err <= tol:
         raise AssertionError("stream_rowpad_feats disagrees with its plain "
                              "version")
-    rec["stream_rowpad_feats"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    # bytes: the stream read once, the table written once; operations: one
+    # add per payload element, one divide per output element (f32)
+    rec["stream_rowpad_feats"] = with_bound(
+        dict(max_abs_err=err, ms=ms, plain_ms=pms), nbytes(*args, got),
+        args[0].numel() + got.numel(), "f32")
     rp_feats = got
 
     # K2 at four shapes of the path: the stem (cin 5), the L0 subm conv
@@ -242,12 +405,19 @@ def check_kernels(model, pts, pv, device):
         ms = time_ms(lambda: rowpad_conv.rowpad_conv_fused(*a, **ckw))
         pms = time_ms(lambda: rowpad_conv.rowpad_conv_fused_plain(*a, **ckw),
                       iters=2, warmup=1)
+        lv_in = lv_out - 1 if mode == "down" else lv_out
+        work = conv_work(table_in, nbr, plan[lv_in]["rp_zmask"], zm, nz_in,
+                         cin, cout, mode, ckw["z_stride"],
+                         nbytes(sc, bi, residual) + 2 * got.numel())
+        rc = with_bound(dict(case=name, max_abs_err=err, tol=tol, ms=ms,
+                             plain_ms=pms), *work, "bf16")
         print(f"[kernels] rowpad_conv_fused {name} in {tuple(a[0].shape)} "
               f"out {tuple(got.shape)}: max_abs_err {err:.3g} (tol "
-              f"{tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} ms")
+              f"{tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} ms, bound "
+              f"{rc['bound_ms']:.4f} ms ({rc['bound_by']})")
         if not err <= tol:
             raise AssertionError(f"rowpad_conv_fused {name} disagrees")
-        return dict(case=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=pms)
+        return rc
 
     nz3 = plan[3]["rp_zmask"].shape[1]
     cases = [
@@ -260,24 +430,14 @@ def check_kernels(model, pts, pv, device):
         case("L3 subm 128->128 +res", rand_table(3, 128), 3,
              plan[3]["rp_nbr"], 128, 128, nz3, "subm", True),
     ]
-    # K2's record: the worst error and the summed times of its four shapes
-    rec["rowpad_conv_fused"] = dict(
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=sum(c["ms"] for c in cases),
-        plain_ms=sum(c["plain_ms"] for c in cases), cases=cases)
+    # K2's record: the worst error, the summed times and bounds of its four
+    # shapes
+    rec["rowpad_conv_fused"] = sum_cases(cases)
 
     # K3 on 1000 x 1000 boxes with real overlaps: 200 clusters of 5
     # jittered boxes.  Both versions round every operation alike; the
     # tolerance 1e-5 absolute covers sin/cos differing in the last ulp.
-    g = torch.Generator().manual_seed(2)
-    base = torch.rand((200, 1, 5), generator=g)
-    base = base * torch.tensor([80.0, 80.0, 4.0, 2.0, 6.283]) \
-        + torch.tensor([-40.0, -40.0, 1.0, 1.0, -3.1416])
-    jit = torch.randn((200, 5, 5), generator=g) \
-        * torch.tensor([0.3, 0.3, 0.2, 0.1, 0.2])
-    boxes = (base + jit).reshape(1000, 5)
-    boxes[:, 2:4] = boxes[:, 2:4].abs() + 0.2
-    boxes = boxes.to(device)
+    boxes = clustered_boxes(device)
     ref = iou_bev.boxes_iou_bev_plain(boxes, boxes)
     got = iou_bev.boxes_iou_bev(boxes, boxes)
     torch.cuda.synchronize()
@@ -290,7 +450,9 @@ def check_kernels(model, pts, pv, device):
           f"{pms:.3f} ms")
     if not err <= 1e-5:
         raise AssertionError("boxes_iou_bev disagrees with its plain version")
-    rec["boxes_iou_bev"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+    rec["boxes_iou_bev"] = with_bound(
+        dict(max_abs_err=err, ms=ms, plain_ms=pms), nbytes(boxes, boxes, got),
+        clip_ops(boxes, boxes, iou=True), "f32")
 
     # the walk on that matrix: keep masks must be equal
     valid = torch.ones(1000, dtype=torch.bool, device=device)
@@ -307,7 +469,10 @@ def check_kernels(model, pts, pv, device):
     if diff:
         raise AssertionError("nms_walk keep mask differs from its plain "
                              "version")
-    rec["nms_walk"] = dict(max_abs_err=float(diff), ms=ms, plain_ms=pms)
+    # one compare per (box, later box) pair at most, k^2 f32 operations
+    rec["nms_walk"] = with_bound(
+        dict(max_abs_err=float(diff), ms=ms, plain_ms=pms),
+        nbytes(got) + 2 * valid.numel(), got.numel(), "f32")
     return rec
 
 
@@ -328,36 +493,47 @@ def read_counts():
             for name, (_, attr) in COUNTERS.items()}
 
 
-def stage_times(model, p, v, frames=3):
-    """Per-stage ms of one frame (mean over `frames`), CUDA events between
-    the stages that predict() composes."""
-    import torch
-    from detzero_tpu_torch.models.detection.backbone3d_pallas import (
-        stack_plans,
-    )
+class StageEvents:
+    """A `stage_hook` of the model (and trainer): records a CUDA event
+    where each stage begins; `ms()` -> {stage: ms} summed over a stage's
+    repeats (the samples of a batch), each stage ending where the next
+    begins and the last at `ms()`'s own event."""
 
-    names = ["table", "vfe (K1)", "plan", "backbone3d (K2)",
-             "bev+head", "decode+nms (K3, walk)"]
-    tot = np.zeros(len(names))
-    for _ in range(frames):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-        with torch.no_grad():
-            ev[0].record()
-            table = model.build_table(p, v)
-            ev[1].record()
-            rp = model.vfe(table["stream"])
-            ev[2].record()
-            plan = stack_plans([model.build_plan(table)])
-            ev[3].record()
-            bev = model.backbone3d(rp, plan)[0]
-            ev[4].record()
-            preds = model.bev_head(bev)
-            ev[5].record()
-            model.decode(preds)
-            ev[6].record()
+    def __init__(self):
+        self.marks = []
+
+    def __call__(self, name):
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.marks.append((name, ev))
+
+    def ms(self):
+        import torch
+
+        self("end")
         torch.cuda.synchronize()
-        tot += [ev[i].elapsed_time(ev[i + 1]) for i in range(6)]
-    return dict(zip(names, (tot / frames).tolist()))
+        out = {}
+        for (name, a), (_, b) in zip(self.marks, self.marks[1:]):
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+def stage_times(run, hooked, calls=1):
+    """Per-stage ms of `run()`, mean over `calls` calls, from the stage
+    hooks of the objects in `hooked` (the model's own stage boundaries)."""
+    tot = {}
+    for _ in range(calls):
+        ev = StageEvents()
+        for obj in hooked:
+            obj.stage_hook = ev
+        run()
+        for obj in hooked:
+            obj.stage_hook = None
+        for k, t in ev.ms().items():
+            tot[k] = tot.get(k, 0.0) + t / calls
+    return tot
 
 
 def run_predict(device):
@@ -409,7 +585,7 @@ def run_predict(device):
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     print(f"[predict] flagship {frames} frames: {ms:.2f} ms/frame, "
           f"{1000.0 / ms:.3f} frames/s, peak memory {peak:.2f} GiB")
-    st = stage_times(model, p[0], v[0])
+    st = stage_times(lambda: model.predict(p, v), [model], calls=3)
     print("[predict] stage ms: " + ", ".join(
         f"{k} {t:.2f}" for k, t in st.items()))
     return launches
@@ -478,13 +654,19 @@ def check_train_kernels(model, batch, device):
         ms = time_ms(lambda: rowpad_conv.rowpad_conv(*a, **ckw))
         pms = time_ms(lambda: rowpad_conv.rowpad_conv_plain(*a, **ckw),
                       iters=2, warmup=1)
+        lv_in = {"subm": lv_out, "down": lv_out - 1, "up": lv_out + 1}[mode]
+        work = conv_work(table, nbr, plan[lv_in]["rp_zmask"], zm, nz_in,
+                         cin, cout, mode, ckw["z_stride"], nbytes(got))
+        rc = with_bound(dict(case=name, max_abs_err=err, tol=tol, ms=ms,
+                             plain_ms=pms), *work, "bf16")
         torch.cuda.empty_cache()
         print(f"[train-kernels] rowpad_conv {name} in {tuple(table.shape)} "
               f"out {tuple(got.shape)}: max_abs_err {err:.3g} (tol "
-              f"{tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} ms")
+              f"{tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} ms, bound "
+              f"{rc['bound_ms']:.4f} ms ({rc['bound_by']})")
         if not err <= tol:
             raise AssertionError(f"rowpad_conv {name} disagrees")
-        return dict(case=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=pms)
+        return rc
 
     def dw_case(name, table, nbr, lv_out, cin, cout, nz_in, mode):
         """K5 with a random output gradient that is zero at empty sites, as
@@ -504,16 +686,23 @@ def check_train_kernels(model, batch, device):
         ms = time_ms(lambda: rowpad_conv.rowpad_conv_dw(*a, **ckw))
         pms = time_ms(lambda: rowpad_conv.rowpad_conv_dw_plain(*a, **ckw),
                       iters=2, warmup=1)
+        lv_in = lv_out - 1 if mode == "down" else lv_out
+        work = conv_work(table, nbr, plan[lv_in]["rp_zmask"], zm, nz_in,
+                         cin, cout, mode, ckw["z_stride"], nbytes(d_out, got)
+                         - 27 * cin * cout * 2)
+        rc = with_bound(dict(case=name, max_abs_err=err, tol=tol, ms=ms,
+                             plain_ms=pms), *work, "bf16")
         torch.cuda.empty_cache()
         print(f"[train-kernels] rowpad_conv_dw {name} table "
               f"{tuple(table.shape)} d_out {tuple(d_out.shape)}: max_abs_err "
-              f"{err:.3g} (tol {tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} ms")
+              f"{err:.3g} (tol {tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} "
+              f"ms, bound {rc['bound_ms']:.4f} ms ({rc['bound_by']})")
         if not err <= tol:
             raise AssertionError(f"rowpad_conv_dw {name} disagrees")
         if not torch.equal(got, again):
             raise AssertionError(f"rowpad_conv_dw {name} differs between "
                                  f"two launches")
-        return dict(case=name, max_abs_err=err, tol=tol, ms=ms, plain_ms=pms)
+        return rc
 
     nz3 = plan[3]["rp_zmask"].shape[1]
     l0_16 = rand_table(0, 16)
@@ -540,14 +729,7 @@ def check_train_kernels(model, batch, device):
         dw_case("L3 subm 128->128", rand_table(3, 128), plan[3]["rp_nbr"],
                 3, 128, 128, nz3, "subm"),
     ]
-    rec = {}
-    for name, cases in (("rowpad_conv", conv), ("rowpad_conv_dw", dw)):
-        rec[name] = dict(max_abs_err=max(c["max_abs_err"] for c in cases),
-                         ms=sum(c["ms"] for c in cases),
-                         plain_ms=sum(c["plain_ms"] for c in cases),
-                         cases=cases)
-
-    return rec
+    return {"rowpad_conv": sum_cases(conv), "rowpad_conv_dw": sum_cases(dw)}
 
 
 def check_pairwise(model, batch):
@@ -567,8 +749,8 @@ def check_pairwise(model, batch):
     was = model.training
     model.train()
     with torch.no_grad():
-        preds = model.network(*model.prepare(batch["points"],
-                                             batch["points_valid"]))
+        preds, _ = model.network(*model.prepare(batch["points"],
+                                                batch["points_valid"]))
         targets = model.targets(batch["gt_boxes"], batch["gt_classes"],
                                 batch["gt_valid"])
         for k, b in model.named_buffers():
@@ -578,8 +760,10 @@ def check_pairwise(model, batch):
               voxel_size=model.voxel_size, pc_range=model.pc_range)
     overlap = (iou_bev.boxes_overlap_bev_pairwise,
                iou_bev.boxes_overlap_bev_pairwise_plain)
-    iou = (iou_bev.boxes_iou_bev_pairwise, iou_bev.boxes_iou_bev_pairwise_plain)
+    iou = (iou_bev.boxes_iou_bev_pairwise,
+           iou_bev.boxes_iou_bev_pairwise_plain)
     worst, ms, pms, iou_ms, iou_pms = 0.0, 0.0, 0.0, 0.0, 0.0
+    n_bytes = n_ops = 0
     for hi, (pred, tgt) in enumerate(zip(preds, targets)):
         a, b = (boxes3d_to_bev(x.reshape(-1, 7))
                 for x in iou_pairs(pred, tgt, **kw))
@@ -593,6 +777,8 @@ def check_pairwise(model, batch):
         iou_ms += time_ms(lambda: iou[0](a, b))
         iou_pms += time_ms(lambda: iou[1](a, b), iters=3)
         n_over = int((overlap[0](a, b) > 0).sum())
+        n_bytes += nbytes(a, b) + 4 * a.shape[0]
+        n_ops += clip_ops(a, b, pairwise=True)
         print(f"[train-kernels] boxes_bev_pairwise head {hi}: {a.shape[0]} "
               f"pairs ({int(tgt['mask'].sum())} matched, {n_over} "
               f"overlapping)")
@@ -603,38 +789,8 @@ def check_pairwise(model, batch):
     if worst != 0.0:
         raise AssertionError("boxes_bev_pairwise disagrees with its plain "
                              "version")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=pms)
-
-
-def train_stage_times(model, optimizer, batch):
-    """Per-stage ms of one training step: the stages Trainer.step and
-    CenterPoint.loss compose, with CUDA events between them."""
-    import torch
-
-    names = ["table+vfe+plan (K1)", "backbone3d fwd (K4)", "bev+head fwd",
-             "targets+loss (K6)", "backward (K4, K5)", "optimizer"]
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
-    model.train()
-    ev[0].record()
-    rp, plan = model.prepare(batch["points"], batch["points_valid"])
-    ev[1].record()
-    bev = model.backbone3d(rp, plan)
-    ev[2].record()
-    preds = model.bev_head(bev)
-    ev[3].record()
-    per_sample, _ = model.head_loss(preds, model.targets(
-        batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"]))
-    loss = per_sample.mean()
-    ev[4].record()
-    optimizer.zero_grad()
-    loss.backward()
-    ev[5].record()
-    optimizer.step()
-    ev[6].record()
-    torch.cuda.synchronize()
-    model.eval()
-    return dict(zip(names, (ev[i].elapsed_time(ev[i + 1])
-                            for i in range(6))))
+    return with_bound(dict(max_abs_err=worst, ms=ms, plain_ms=pms), n_bytes,
+                      n_ops, "f32")
 
 
 def run_train(device):
@@ -690,7 +846,7 @@ def run_train(device):
           f"ms/step ({', '.join(f'{t:.2f}' for t in times)}), "
           f"{1000.0 * TRAIN_BATCH / ms:.3f} samples/s, peak memory "
           f"{peak:.2f} GiB")
-    st = train_stage_times(model, trainer.optimizer, batch)
+    st = stage_times(lambda: trainer.step(batch), [model, trainer])
     print("[train] stage ms: " + ", ".join(f"{k} {t:.2f}"
                                            for k, t in st.items()))
     return rec, launches
@@ -801,6 +957,312 @@ def check_tiny_train(device):
                                  f"norm ratio {bf16['norm_ratio']}")
 
 
+def run_two_stage_predict(device):
+    """Phase 7.  Returns {kernel name: launches in the counted frame}."""
+    import torch
+
+    pts, pv = entry_points()
+    model = build_model(FLAGSHIP2_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    p = torch.from_numpy(pts).to(device)
+    v = torch.from_numpy(pv).to(device)
+    for _ in range(2):                               # warm-up frames
+        model.predict(p, v)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    out = model.predict(p, v)                        # the counted frame
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[two-stage predict] launches in one frame: {launches}")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"rowpad_conv_fused": 20, "boxes_iou_bev": 1,
+                 "nms_walk": 1})
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    r = FLAGSHIP2_CFG["ROI_BUDGET"]
+    shapes = {k: tuple(t.shape) for k, t in out.items()}
+    if shapes != {"boxes": (1, r, 7), "scores": (1, r), "labels": (1, r),
+                  "mask": (1, r)}:
+        raise AssertionError(f"two-stage predict shapes {shapes}")
+    for k, t in out.items():
+        if t.is_floating_point() and not torch.isfinite(t).all():
+            raise AssertionError(f"non-finite two-stage output {k}")
+    n_kept = int(out["mask"].sum())
+    sc = out["scores"][out["mask"]]
+    if not (0 < n_kept and float(sc.min()) > 0 and float(sc.max()) <= 1):
+        raise AssertionError(f"two-stage predict: {n_kept} kept, scores "
+                             f"{sc}")
+    print(f"[two-stage predict] outputs finite; boxes {shapes['boxes']}, "
+          f"{n_kept} proposals kept, refined scores {float(sc.min()):.4f} "
+          f"to {float(sc.max()):.4f}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    frames = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(frames):
+        model.predict(p, v)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / frames
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"[two-stage predict] flagship {frames} frames: {ms:.2f} ms/frame,"
+          f" {1000.0 / ms:.3f} frames/s, peak memory {peak:.2f} GiB")
+    st = stage_times(lambda: model.predict(p, v), [model], calls=3)
+    print("[two-stage predict] stage ms: " + ", ".join(
+        f"{k} {t:.2f}" for k, t in st.items()))
+    return launches
+
+
+def check_overlap(model, batch, device):
+    """Phase 8: K7 against its plain version on the RoI targets' own inputs
+    of the next training step, sample 0's 128 RoIs (the batch's train-mode
+    forward on the step's weights, BN statistics restored) against its 500
+    GT slots, as `assign_roi_targets` launches it; and on
+    1000 x 1000 clustered boxes.  Both versions round every operation
+    alike: 1e-5 * the largest area covers sin/cos differing in the last
+    ulp.  Returns K7's record, timed and bounded at the path's shape."""
+    import torch
+    from detzero_tpu_torch.ops import iou_bev
+    from detzero_tpu_torch.ops.box_ops import boxes3d_to_bev
+
+    stats = {k: b.clone() for k, b in model.named_buffers()}
+    was = model.training
+    model.train()
+    with torch.no_grad():
+        _, roi = model.network(*model.prepare(batch["points"],
+                                              batch["points_valid"]))
+        for k, b in model.named_buffers():
+            b.copy_(stats[k])
+    model.train(was)
+    path = (boxes3d_to_bev(roi["rois"][0]).contiguous(),
+            boxes3d_to_bev(batch["gt_boxes"][0][:, :7]).contiguous())
+    big = (clustered_boxes(device),) * 2
+    rec = {}
+    for name, (a, b) in (("path", path), ("1000x1000", big)):
+        ref = iou_bev.boxes_overlap_bev_plain(a, b)
+        got = iou_bev.boxes_overlap_bev(a, b)
+        torch.cuda.synchronize()
+        err = max_abs(got, ref)
+        tol = 1e-5 * max(float(ref.max()), 1.0)
+        ms = time_ms(lambda: iou_bev.boxes_overlap_bev(a, b))
+        pms = time_ms(lambda: iou_bev.boxes_overlap_bev_plain(a, b), iters=3)
+        rec[name] = with_bound(dict(max_abs_err=err, ms=ms, plain_ms=pms),
+                               nbytes(a, b, got),
+                               clip_ops(a, b), "f32")
+        print(f"[two-stage train] boxes_overlap_bev {name} "
+              f"{tuple(got.shape)} ({int((got > 0).sum())} overlapping "
+              f"pairs): max_abs_err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms "
+              f"vs plain {pms:.3f} ms, bound {rec[name]['bound_ms']:.5f} ms "
+              f"({rec[name]['bound_by']})")
+        if not err <= tol:
+            raise AssertionError(f"boxes_overlap_bev {name} disagrees with "
+                                 f"its plain version")
+    return dict(rec["path"], max_abs_err=max(r["max_abs_err"]
+                                             for r in rec.values()),
+                big=rec["1000x1000"])
+
+
+def run_two_stage_train(device):
+    """Phase 8.  Returns (K7's record, {kernel name: launches in the
+    counted step})."""
+    import torch
+    from detzero_tpu_torch.core.optim import build_optimizer
+    from detzero_tpu_torch.parallel.trainer import Trainer
+
+    pts, pv = entry_points(batch=TRAIN_BATCH)
+    gt = make_gt(TRAIN_BATCH, FLAGSHIP_KW["max_objs"], 48, 60.0)
+    batch = train_batch(pts, pv, gt, device)
+    # the RoI subsample's draws, from a seeded generator on the card
+    batch["generator"] = torch.Generator(device=device).manual_seed(5)
+    model = build_model(FLAGSHIP2_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    timed = 3
+    trainer = Trainer(model, build_optimizer(FLAGSHIP_OPT, timed + 2, model))
+    trainer.step(batch)                              # warm-up step
+    torch.cuda.synchronize()
+    rec = check_overlap(model, batch, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"boxes_iou_bev": TRAIN_BATCH, "nms_walk": TRAIN_BATCH,
+                 "rowpad_conv": 39, "rowpad_conv_dw": 20,
+                 "boxes_iou_bev_pairwise": 2,
+                 "boxes_overlap_bev": TRAIN_BATCH})
+    times = []
+    for i in range(timed):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reset_counts()
+        start.record()
+        loss, aux, gnorm = trainer.step(batch)       # a counted step
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_counts()
+        times.append(start.elapsed_time(end))
+        if launches != want:
+            raise AssertionError(f"two-stage train step {i}: launch counts "
+                                 f"{launches}, expected {want}")
+        if not (torch.isfinite(loss) and torch.isfinite(gnorm)):
+            raise AssertionError(f"two-stage train step {i}: loss "
+                                 f"{float(loss)}, gnorm {float(gnorm)}")
+        print(f"[two-stage train] step {i}: {times[-1]:.2f} ms, loss "
+              f"{float(loss):.4f}, gnorm {float(gnorm):.4f}")
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    print(f"[two-stage train] launches in one step: {launches}")
+    print("[two-stage train] aux: " + ", ".join(
+        f"{k} {float(v.mean()):.4f}" for k, v in aux.items()))
+    ms = sum(times) / timed
+    print(f"[two-stage train] flagship batch {TRAIN_BATCH}, {timed} steps: "
+          f"{ms:.2f} ms/step ({', '.join(f'{t:.2f}' for t in times)}), "
+          f"{1000.0 * TRAIN_BATCH / ms:.3f} samples/s, peak memory "
+          f"{peak:.2f} GiB")
+    st = stage_times(lambda: trainer.step(batch), [model, trainer])
+    print("[two-stage train] stage ms: " + ", ".join(
+        f"{k} {t:.2f}" for k, t in st.items()))
+    return rec, launches
+
+
+def roi_grad_shares(grads):
+    """{leaf: share of its elements where grads["f32"] and grads["cpu"]
+    differ by more than 1e-3 * max|CPU leaf| + 1e-6}."""
+    share = {}
+    for k, r in grads["cpu"].items():
+        bound = 1e-3 * float(r.abs().max()) + 1e-6
+        share[k] = float(((grads["f32"][k] - r).abs() > bound).sum()) \
+            / r.numel()
+    return share
+
+
+def check_tiny_two_stage(device):
+    """Phase 9: the tiny two-stage model, the card against the CPU from the
+    same weights.
+      * Predict (bf16 on the card; K2 always computes in bf16): the
+        first-stage head outputs and the multi-scale tables within 5e-2 *
+        max(|ref|, 1), the bound of the tiny predict check, and the RoI
+        head on the CPU's own proposals and tables within the same bound.
+        The proposals come from a top-k of the heatmaps, which bf16
+        rounding reorders, so the card's own end-to-end boxes are held to
+        be finite only.
+      * The training loss at batch 2 in float32 on the card (K4 on float32
+        tables; K3, the walk and K7 on the train-mode proposals), float32
+        on both sides: the loss and each RoI term (roi_cls, roi_reg,
+        roi_corner) within 1e-3 relative.  The RoI head's gradient there
+        also carries the first stage's rounding (K4 and cuDNN against the
+        CPU), amplified by its batch norms; its share of elements past the
+        bound below is printed.
+      * The RoI head, its targets (K7) and its loss alone, train mode, on
+        the CPU's own proposals, BEV map and tables, where only the
+        rounding of the head's own sums differs: every gradient leaf of the
+        RoI head with at most 1e-3 of its elements beyond 1e-3 * max|CPU
+        leaf| + 1e-6, the bound tests/test_torch_two_stage_train.py holds
+        the port to against the reference (an element past it is a max-pool
+        or ReLU decision flipped by rounding)."""
+    import torch
+
+    cpu = build_model(TINY2_CFG, TINY_KW, torch.float32, "cpu")
+    gpu = build_model(TINY2_CFG, TINY_KW, torch.bfloat16, device)
+    gpu.load_state_dict(cpu.state_dict())
+    batch = tiny_train_batch(0, "cpu")
+    p, v = batch["points"], batch["points_valid"]
+    worst = 0.0
+
+    def close(ref, got, what):
+        nonlocal worst
+        err = max_abs(got.cpu(), ref)
+        tol = 5e-2 * max(float(ref.float().abs().max()), 1.0)
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise AssertionError(f"tiny two-stage {what}: {err} > {tol}")
+
+    with torch.no_grad():
+        outs = []
+        for model, dev in ((cpu, "cpu"), (gpu, device)):
+            out3d = model.backbone3d(*model.prepare(p[:1].to(dev),
+                                                    v[:1].to(dev)))
+            bev = model.backbone2d(out3d["spatial_features"].to(model.dtype))
+            outs.append((out3d["multi_scale_3d_features"], bev,
+                         model.center_head(bev)))
+        (ms_c, bev_c, heads_c), (ms_g, _, heads_g) = outs
+        for r, g in zip(heads_c, heads_g):
+            for k in r:
+                close(r[k], g[k], f"head output {k}")
+        for name in ms_c:
+            close(ms_c[name]["features"], ms_g[name]["features"], name)
+        prop = cpu.proposals(heads_c)
+        ref = cpu.refine(prop, bev_c, ms_c)
+        got = gpu.refine(
+            {k: t.to(device) for k, t in prop.items()},
+            bev_c.to(device, torch.bfloat16),
+            {n: {k: t.to(device) for k, t in lv.items()}
+             for n, lv in ms_c.items()})
+        for k in ("cls_logit", "reg_deltas"):
+            close(ref[k], got[k], f"RoI head {k}")
+        out = gpu.predict(p[:1].to(device), v[:1].to(device))
+        if not all(bool(torch.isfinite(t.float()).all())
+                   for t in out.values()):
+            raise AssertionError("tiny two-stage predict: non-finite output")
+
+    gb = batch["gt_boxes"].clone()
+    gb[:, :4, :7] = ref["rois"][0, :4] + 0.05       # foreground RoIs
+    batch["gt_boxes"] = gb
+    draws = cpu.roi_draws(TRAIN_BATCH, torch.Generator().manual_seed(1))
+    f32 = build_model(TINY2_CFG, TINY_KW, torch.float32, device)
+    f32.load_state_dict(cpu.state_dict())
+    runs, grads = {}, {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("f32", f32, device)):
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        loss, aux = model.loss(**{k: t.to(dev) for k, t in batch.items()},
+                               roi_draws=tuple(d.to(dev) for d in draws))
+        loss.backward()
+        torch.cuda.synchronize()
+        n = read_counts()
+        if dev != "cpu" and (n["boxes_overlap_bev"], n["rowpad_conv"]) \
+                != (TRAIN_BATCH, 39):
+            raise AssertionError(f"tiny two-stage loss launches {n}")
+        grads[name] = {k: q.grad.cpu() for k, q in model.named_parameters()
+                       if k.startswith("roi_head.")}
+        runs[name] = {"loss": loss.detach().cpu()}
+        runs[name].update({k: t.detach().cpu() for k, t in aux.items()
+                           if k.startswith("roi_")})
+    rel = {k: float((runs["f32"][k] - r).abs().max()
+                    / max(float(r.abs().max()), 1e-3))
+           for k, r in runs["cpu"].items()}
+    if sorted(rel) != ["loss", "roi_cls", "roi_corner", "roi_reg"] \
+            or not max(rel.values()) <= 1e-3:
+        raise AssertionError(f"tiny two-stage loss terms, card vs CPU: "
+                             f"relative errors {rel}")
+    full = roi_grad_shares(grads)
+
+    for name, model, dev in (("cpu", cpu, "cpu"), ("f32", f32, device)):
+        model.zero_grad(set_to_none=True)
+        model.train()
+        roi = model.refine({k: t.to(dev) for k, t in prop.items()},
+                           bev_c.to(dev), {n: {k: t.to(dev)
+                                               for k, t in lv.items()}
+                                           for n, lv in ms_c.items()})
+        loss, _ = model.roi_loss(roi, gb[:1].to(dev),
+                                 batch["gt_valid"][:1].to(dev),
+                                 tuple(d[:1].to(dev) for d in draws))
+        loss.mean().backward()
+        model.eval()
+        grads[name] = {k: q.grad.cpu() for k, q in model.named_parameters()
+                       if k.startswith("roi_head.")}
+    alone = roi_grad_shares(grads)
+    top = max(alone, key=alone.get)
+    print(f"[two-stage tiny] card vs CPU: predict worst err/tol "
+          f"{worst:.3f}; float32 loss {float(runs['f32']['loss']):.5f} (CPU "
+          f"{float(runs['cpu']['loss']):.5f}), relative errors of the loss "
+          f"and RoI terms {rel}; share of RoI head gradient elements past "
+          f"the bound, largest over {len(alone)} leaves: whole loss "
+          f"{max(full.values()):.3g}, RoI head alone {alone[top]:.3g} "
+          f"({top})")
+    if not alone[top] <= 1e-3:
+        raise AssertionError(f"tiny two-stage RoI head gradient {top}: "
+                             f"{alone[top]} of its elements beyond the bound")
+
+
 def main():
     import torch
 
@@ -854,8 +1316,18 @@ def main():
     rec.update(train_rec)
     torch.cuda.empty_cache()
     check_tiny_train(device)
+    torch.cuda.empty_cache()
 
-    # 7. result lines
+    # 7. to 9. the two-stage model: predict, the training step with K7, and
+    # the tiny check
+    by_path["two_stage_predict"] = run_two_stage_predict(device)
+    torch.cuda.empty_cache()
+    rec["boxes_overlap_bev"], by_path["two_stage_train_step"] = \
+        run_two_stage_train(device)
+    torch.cuda.empty_cache()
+    check_tiny_two_stage(device)
+
+    # 10. result lines
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rec[name]
@@ -865,7 +1337,9 @@ def main():
                         "launches": sum(counts.values()),
                         "launches_by_path": counts,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,8 @@ SIGNATURES = {
     # ny_in, nz, cin, b_in, ny_out, out_nz, cout, b_out, down, z_stride,
     # rows_per_chunk, stream
     "dz_rowpad_conv_dw": [_P] * 6 + [_I] * 11 + [_P],
-    # boxes_a, boxes_b, out, n, m, stream
-    "dz_iou_bev": [_P] * 3 + [_I] * 2 + [_P],
+    # boxes_a, boxes_b, out, n, m, iou, stream
+    "dz_iou_bev": [_P] * 3 + [_I] * 3 + [_P],
     # boxes_a, boxes_b, out, n, iou, stream
     "dz_iou_bev_pairwise": [_P] * 3 + [_I] * 2 + [_P],
     # iou, valid, keep, k, thresh, stream

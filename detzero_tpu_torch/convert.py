@@ -7,13 +7,17 @@ neither jax nor flax is imported) and returns a state_dict for
 reference's gradients, say) converts to the port's parameter names.
 `to_flax` maps a state_dict (or a dict of gradients by parameter name) back
 to the nested numpy tree.  The port's module names are flax's auto-names,
-so each leaf maps one to one:
+so each leaf maps one to one, by its name and its parent's:
 
-  sparse kernels (27|3, Cin, Cout)      kept (spconv order), `.kernel`
+  SparseConvBNReLU_* kernels            kept (spconv order), `.kernel`
+    (27|3, Cin, Cout)
+  attention query/key/value/out         kept (flax's DenseGeneral layout),
+    kernels (C, H, D) / (H, D, C)       `.kernel`
   nn.Conv kernels HWIO                  OIHW, `.weight`
   nn.ConvTranspose kernels HWIO         IOHW flipped in space, `.weight`
                                         (flax does not flip, torch does)
-  conv biases, BN scale/bias            kept
+  nn.Dense kernels (in, out)            (out, in), `.weight`
+  biases, BN and LayerNorm scale/bias   kept
   BN batch_stats mean/var               kept (buffers)
 """
 
@@ -31,6 +35,14 @@ def _leaves(tree, prefix=()):
             yield from _leaves(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), np.asarray(v)
+
+
+_ATTENTION = ("query", "key", "value", "out")
+
+
+def _kept_3d(parent):
+    """The 3-D kernels kept as they are: sparse convs and attention."""
+    return parent.startswith("SparseConvBNReLU") or parent in _ATTENTION
 
 
 def convert_centerpoint(variables, model=None):
@@ -52,8 +64,12 @@ def convert_centerpoint(variables, model=None):
                 else:
                     val = arr.transpose(3, 2, 0, 1)
                 key = ".".join(path[:-1] + ("weight",))
+            elif collection == "params" and name == "kernel" \
+                    and arr.ndim == 2:
+                val = arr.T
+                key = ".".join(path[:-1] + ("weight",))
             elif collection == "params" and (
-                    (name == "kernel" and arr.ndim == 3)
+                    (name == "kernel" and arr.ndim == 3 and _kept_3d(parent))
                     or name in ("scale", "bias")):
                 val = arr
             else:
@@ -61,7 +77,7 @@ def convert_centerpoint(variables, model=None):
                                  f"{collection}/{'/'.join(path)} "
                                  f"{arr.shape}")
             state[key] = torch.from_numpy(
-                np.ascontiguousarray(val, dtype=np.float32))
+                np.array(val, dtype=np.float32, order="C"))
     if model is not None:
         want = model.state_dict() if "batch_stats" in variables \
             else dict(model.named_parameters())
@@ -94,7 +110,10 @@ def to_flax(state):
             else:
                 arr = arr.transpose(2, 3, 1, 0)
             path = path[:-1] + ["kernel"]
-        elif not ((name == "kernel" and arr.ndim == 3)
+        elif name == "weight" and arr.ndim == 2:
+            arr = arr.T
+            path = path[:-1] + ["kernel"]
+        elif not ((name == "kernel" and arr.ndim == 3 and _kept_3d(parent))
                   or name in ("scale", "bias")):
             raise ValueError(f"no conversion rule for {key} {arr.shape}")
         node = out.setdefault(collection, {})

@@ -1,11 +1,14 @@
-// Rotated BEV IoU matrix: boxes_a (n, 5) x boxes_b (m, 5) -> (n, m) f32,
-// boxes as [x, y, dx, dy, heading]; and the matched-pair overlap / IoU
-// (n, 5) x (n, 5) -> (n,) f32.
+// Rotated BEV boxes as [x, y, dx, dy, heading]: the N x M matrix
+// boxes_a (n, 5) x boxes_b (m, 5) -> (n, m) f32 of IoU (kernel K3) or of
+// intersection areas (kernel K7), and the matched-pair overlap / IoU
+// (n, 5) x (n, 5) -> (n,) f32 (kernel K6).
 //
-// Replaces detzero_tpu/ops/pallas_iou.py::boxes_iou_bev (_launch,
-// _iou_kernel, _overlap_tile, _clip_area) and the pairwise kernels of
-// _launch_pairwise (_overlap_tile_pairwise, _pairwise_iou_kernel).  The
-// TPU kernel runs the
+// Replaces detzero_tpu/ops/pallas_iou.py::_launch with both of its
+// epilogues, boxes_iou_bev (_iou_kernel) and boxes_overlap_bev
+// (_overlap_kernel; the N x M overlap that iou3d.boxes_iou3d takes, as the
+// RoI targets of the two-stage training loss do), over _overlap_tile and
+// _clip_area; and the pairwise kernels of _launch_pairwise
+// (_overlap_tile_pairwise, _pairwise_iou_kernel).  The TPU kernel runs the
 // Sutherland-Hodgman clip over a (128, 128) tile of pairs as vector ops with
 // eight polygon slots per pair; here one thread owns one pair and keeps its
 // polygon (at most 8 vertices) in registers.  The arithmetic follows
@@ -15,8 +18,18 @@
 // on its own (no fused multiply-add), as the plain PyTorch version rounds
 // it, because near-threshold NMS keep sets depend on the last bit.
 //
-// Bound on the H100: operations, about 1.5k flops per pair, with 40 bytes
-// read per box and 4 written per pair.
+// Work.  As written, a thread spends 778 float32 operations on its pair
+// (a compare, abs, sin or cos counting one): the corners of both boxes
+// (2 x 44), four edges of eight vertex slots each (4 x (2 + 8 x 20): the
+// side test 5, its compare, the crossing test 4, denom, guard 2, t and the
+// point 6) and the shoelace over eight slots (8 x 5 + 2); the IoU epilogue
+// adds 6.  What the data need is less: the corners once per box, and for a
+// pair whose circumcircles do not meet only that test; chip_smoke.py's
+// clip_ops counts it on the inputs it times.  The bound at the RoI-target
+// shape of the two-stage step, 128 x 500 mostly disjoint pairs, is the
+// bytes (20 read per box, 4 written per pair, 0.27 MB): under 0.1 us on
+// the H100.  The launch costs more than the work, so the matrix kernel
+// stays one thread per pair with no shared-memory tiling.
 #include "common.cuh"
 
 namespace {
@@ -104,6 +117,9 @@ __device__ float clip_area(const float* ax, const float* ay, const float* bx,
   return n >= 3.f ? mul(fabsf(area2), 0.5f) : 0.f;
 }
 
+// The N x M matrix; the epilogue writes the IoU (K3) or, with !kIoU, the
+// intersection area (K7), as the TPU kernel's two epilogues do.
+template <bool kIoU>
 __global__ void iou_bev_kernel(const float* __restrict__ boxes_a,
                                const float* __restrict__ boxes_b,
                                float* __restrict__ out, int n, int m) {
@@ -116,6 +132,10 @@ __global__ void iou_bev_kernel(const float* __restrict__ boxes_a,
   corners(a, ax, ay);
   corners(b, bx, by);
   const float inter = clip_area(ax, ay, bx, by);
+  if (!kIoU) {
+    out[(size_t)i * m + j] = inter;
+    return;
+  }
   const float area_a = mul(a[2], a[3]), area_b = mul(b[2], b[3]);
   const float uni = fmaxf(sub(add(area_a, area_b), inter), 1e-6f);
   out[(size_t)i * m + j] = __fdiv_rn(inter, uni);
@@ -157,13 +177,20 @@ DZ_EXPORT int dz_iou_bev_pairwise(const void* boxes_a, const void* boxes_b,
   return dz_launch_status();
 }
 
+// iou != 0: the IoU matrix (K3); iou == 0: the intersection areas (K7).
 DZ_EXPORT int dz_iou_bev(const void* boxes_a, const void* boxes_b, void* out,
-                         int n, int m, void* stream) {
+                         int n, int m, int iou, void* stream) {
   if (n == 0 || m == 0) return dz_launch_status();
-  if ((n + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
   dim3 grid((m + block.x - 1) / block.x, (n + block.y - 1) / block.y);
-  iou_bev_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)boxes_a, (const float*)boxes_b, (float*)out, n, m);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const float* a = (const float*)boxes_a;
+  const float* b = (const float*)boxes_b;
+  if (iou)
+    iou_bev_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        a, b, (float*)out, n, m);
+  else
+    iou_bev_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        a, b, (float*)out, n, m);
   return dz_launch_status();
 }

@@ -6,7 +6,9 @@ which applies the folded BN, the residual, the ReLU and the zmask in its
 epilogue.  Train mode: each conv is `RowpadConv` (kernel K4 forward, K4 and
 K5 backward) followed by the masked batch-statistics BN, the ReLU, the
 zmask and the residual as torch ops (`backbone3d_pallas.py:162-177`).  The
-final (3,1,1) z-conv and the BEV densify run on the compact table.
+final (3,1,1) z-conv and the BEV densify run on the compact table.  With
+`with_multi_scale` (the PDV second stage) the backbone also returns the
+compact tables of levels 2 and 3 (`x_conv3`, `x_conv4`), per sample.
 
 A batch runs as one table: the samples' row-padded tables and neighbour
 maps are stacked along the BEV-row axis (`stack_plans`), so each conv is one
@@ -62,22 +64,33 @@ def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
 
 
 _RP_STACKED = ("rp_zmask", "rp_nbr", "rp_down_nbr", "rp_up_nbr")
+# what the second stage reads of levels 2 and 3, per sample
+_SAMPLE_KEYS = ("cells", "mask", "zmask", "lut", "centroids")
 
 
 def stack_plans(plans):
     """Per-sample rowpad plans -> one plan for the batch: levels 0..3 carry
     the row-padded zmasks and neighbour maps stacked along the BEV-row axis
-    (ranks stay row-local, so the maps need no offset), level 3 the compact
-    slots of every sample into the stacked table, and the final level the
-    samples' compact zmasks concatenated plus their cells and masks stacked
-    (B, MP) for the per-sample densify."""
+    (ranks stay row-local, so the maps need no offset); level 3 the
+    compact slots of every sample into the stacked table, for the z-conv;
+    with centroids in the plans (the second stage), levels 2 and 3 also
+    the slots and the samples' cells, masks, zmasks, row LUTs and
+    centroids stacked along a leading batch axis, for the multi-scale
+    tables, whose voxel query probes one sample at a time; the final level
+    the samples' compact zmasks concatenated plus their cells and masks
+    stacked (B, MP) for the per-sample densify."""
     out = [{k: torch.cat([p[lvl][k] for p in plans]) for k in _RP_STACKED
             if k in plans[0][lvl]} for lvl in range(4)]
-    zm3 = plans[0][3]["rp_zmask"]
-    rows = zm3.shape[0] * zm3.shape[2]          # slots of one sample at L3
-    out[3]["rp_slot"] = torch.cat([p[3]["rp_slot"] + b * rows
-                                   for b, p in enumerate(plans)])
-    out[3]["rp_keep"] = torch.cat([p[3]["rp_keep"] for p in plans])
+    multi_scale = "centroids" in plans[0][3]
+    for lvl in (2, 3) if multi_scale else (3,):
+        zm = plans[0][lvl]["rp_zmask"]
+        rows = zm.shape[0] * zm.shape[2]        # slots of one sample
+        out[lvl]["rp_slot"] = torch.cat([p[lvl]["rp_slot"] + b * rows
+                                         for b, p in enumerate(plans)])
+        out[lvl]["rp_keep"] = torch.cat([p[lvl]["rp_keep"] for p in plans])
+        if multi_scale:
+            out[lvl].update({k: torch.stack([p[lvl][k] for p in plans])
+                             for k in _SAMPLE_KEYS})
     out.append({"zmask": torch.cat([p[4]["zmask"] for p in plans]),
                 "cells": torch.stack([p[4]["cells"] for p in plans]),
                 "mask": torch.stack([p[4]["mask"] for p in plans])})
@@ -158,13 +171,20 @@ class SparseBasicBlock(nn.Module):
 class PallasResBackbone8x(nn.Module):
     """[16, 32, 64, 128]-channel sparse residual backbone with 8x BEV
     downsampling.  forward(rp_feats (n*ny, nz*F, B) of n samples stacked,
-    `stack_plans` of their plans) -> BEV maps (n, H/8, W/8, C*nz_final)."""
+    `stack_plans` of their plans) -> {"spatial_features": BEV maps
+    (n, H/8, W/8, C*nz_final), "multi_scale_3d_features": {} or, with
+    `with_multi_scale`, per level "x_conv3" (stride 4) and "x_conv4"
+    (stride 8) the compact output table of the level's blocks, features
+    (n, MP*nz, C) with row p*nz + z for pillar p, and the plan's cells,
+    mask, zmask, lut and centroids of the level, each (n, ...)}."""
 
     def __init__(self, grid_zyx, in_features, channels: Sequence[int] = (
             16, 32, 64, 128), blocks_per_level=2, residual=True,
-            device=None):
+            with_multi_scale=False, device=None):
         super().__init__()
         self.grid_zyx = tuple(grid_zyx)
+        self.channels = tuple(channels)
+        self.with_multi_scale = bool(with_multi_scale)
         name = AutoNames()
         self.stem = name("SparseConvBNReLU")
         self.add_module(self.stem, SparseConvBNReLU(
@@ -195,11 +215,19 @@ class PallasResBackbone8x(nn.Module):
         nz0 = grids[0][0]
         x = getattr(self, self.stem)(rp_feats, plan[0]["rp_zmask"],
                                      plan[0]["rp_nbr"], nz=nz0)
+        multi_scale = {}
         for lvl in range(4):
             e = plan[lvl]
             nz = grids[lvl][0]
             for name in self.blocks[lvl]:
                 x = getattr(self, name)(x, e["rp_zmask"], e["rp_nbr"], nz=nz)
+            if self.with_multi_scale and lvl >= 2:
+                n, mp = e["cells"].shape
+                multi_scale[f"x_conv{lvl + 1}"] = dict(
+                    {k: e[k] for k in _SAMPLE_KEYS if k in e},
+                    features=pillars.from_rowpad(
+                        x, e["rp_slot"], e["rp_keep"]).reshape(
+                        n, mp * nz, self.channels[lvl]))
             if lvl < 3:
                 x = getattr(self, self.downs[lvl])(
                     x, plan[lvl + 1]["rp_zmask"], e["rp_down_nbr"], nz=nz,
@@ -208,11 +236,15 @@ class PallasResBackbone8x(nn.Module):
         l3, final = plan[3], plan[4]
         nz3, c3 = grids[3][0], x.shape[1] // grids[3][0]
         n, mp3 = final["cells"].shape
-        xc = pillars.from_rowpad(x, l3["rp_slot"], l3["rp_keep"]).reshape(
-            n * mp3, nz3, c3)
-        xz = getattr(self, self.zconv)(xc, final["zmask"],
-                                       out_nz=grids[4][0])
+        if "x_conv4" in multi_scale:
+            xc = multi_scale["x_conv4"]["features"]
+        else:
+            xc = pillars.from_rowpad(x, l3["rp_slot"], l3["rp_keep"])
+        xz = getattr(self, self.zconv)(xc.reshape(n * mp3, nz3, c3),
+                                       final["zmask"], out_nz=grids[4][0])
         xz = xz.reshape(n, mp3, -1)
-        return torch.stack([pillars.densify_pillars(
+        bev = torch.stack([pillars.densify_pillars(
             xz[b], final["cells"][b], final["mask"][b],
             (grids[4][1], grids[4][2])) for b in range(n)])
+        return {"spatial_features": bev,
+                "multi_scale_3d_features": multi_scale}

@@ -2,11 +2,17 @@
 
 Parameters and statistics keep the reference's names (`scale`, `bias`,
 `mean`, `var`) and stay float32; the compute dtype is a constructor
-argument.  `MaskedBatchNorm` follows `torch.nn.Module.training`: running
-statistics in eval mode, masked batch statistics in train mode.
+argument, or the input's.  `MaskedBatchNorm` follows
+`torch.nn.Module.training`: running statistics in eval mode, masked batch
+statistics in train mode.  `MLP`, `LayerNorm` and
+`MultiHeadDotProductAttention` are the blocks of the PDV RoI head, with
+flax's numerics: LayerNorm's epsilon 1e-6 and its one-pass variance, the
+attention's query scaled by 1/sqrt(head dim).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -191,3 +197,97 @@ class ConvBNReLU(nn.Module):
     def forward(self, x):
         x = self.MaskedBatchNorm_0(self.Conv_0(x), channel_dim=1)
         return F.relu(x) if self.act else x
+
+
+class Linear(nn.Linear):
+    """nn.Linear (flax `Dense`) that computes in the input's dtype while its
+    parameters stay float32."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), _to(self.bias, x))
+
+
+class MLP(nn.Module):
+    """Dense (no bias) + MaskedBatchNorm + ReLU per width (reference
+    `MLP`): forward(x (..., C), mask (...) or None).  The BN statistics
+    come from the rows `mask` marks."""
+
+    def __init__(self, cin, features, device=None):
+        super().__init__()
+        self.n = len(features)
+        for i, f in enumerate(features):
+            self.add_module(f"dense{i}", Linear(cin, f, bias=False,
+                                                device=device))
+            self.add_module(f"bn{i}", MaskedBatchNorm(f, device=device))
+            cin = f
+
+    def forward(self, x, mask=None):
+        m = None if mask is None else mask[..., None]
+        for i in range(self.n):
+            x = getattr(self, f"dense{i}")(x)
+            x = F.relu(getattr(self, f"bn{i}")(x, mask=m))
+        return x
+
+
+class LayerNorm(nn.Module):
+    """flax `nn.LayerNorm` over the last axis: float32 statistics with the
+    one-pass variance max(E[x^2] - E[x]^2, 0), epsilon 1e-6; the output in
+    the input's dtype."""
+
+    def __init__(self, features, eps=1e-6, device=None):
+        super().__init__()
+        kw = dict(dtype=torch.float32, device=device)
+        self.scale = nn.Parameter(torch.ones(features, **kw))
+        self.bias = nn.Parameter(torch.zeros(features, **kw))
+        self.eps = eps
+
+    def forward(self, x):
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+class DenseGeneral(nn.Module):
+    """flax `DenseGeneral` with the kernel kept in flax's layout:
+    in_shape + out_shape, contracting the input's trailing in_shape axes."""
+
+    def __init__(self, in_shape, out_shape, device=None):
+        super().__init__()
+        kw = dict(dtype=torch.float32, device=device)
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.kernel = nn.Parameter(torch.zeros(self.in_shape + self.out_shape,
+                                               **kw))
+        self.bias = nn.Parameter(torch.zeros(self.out_shape, **kw))
+
+    def forward(self, x):
+        k_in = math.prod(self.in_shape)
+        lead = x.shape[:x.ndim - len(self.in_shape)]
+        y = x.reshape(-1, k_in) @ self.kernel.to(x.dtype).reshape(k_in, -1)
+        return y.reshape(*lead, *self.out_shape) + self.bias.to(x.dtype)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax `nn.MultiHeadDotProductAttention` (no mask, no dropout): query,
+    key and value projections to (heads, head_dim), the query scaled by
+    1/sqrt(head_dim), softmax over the keys, and the output projection
+    back to the input width.  forward(q (..., L, C), k, v)."""
+
+    def __init__(self, features, num_heads, qkv_features, device=None):
+        super().__init__()
+        self.heads = num_heads
+        self.head_dim = qkv_features // num_heads
+        hd = (num_heads, self.head_dim)
+        self.query = DenseGeneral((features,), hd, device=device)
+        self.key = DenseGeneral((features,), hd, device=device)
+        self.value = DenseGeneral((features,), hd, device=device)
+        self.out = DenseGeneral(hd, (features,), device=device)
+
+    def forward(self, inputs_q, inputs_k, inputs_v):
+        q = self.query(inputs_q) / math.sqrt(self.head_dim)
+        k, v = self.key(inputs_k), self.value(inputs_v)
+        logits = torch.einsum("...qhd,...khd->...hqk", q, k)
+        w = torch.softmax(logits, -1)
+        return self.out(torch.einsum("...hqk,...khd->...qhd", w, v))

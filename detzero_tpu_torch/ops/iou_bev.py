@@ -2,20 +2,24 @@
 
   * kernel K3, the IoU matrix (N, 5) x (M, 5) -> (N, M) (`boxes_iou_bev`,
     replaces `detzero_tpu/ops/pallas_iou.py::boxes_iou_bev`);
+  * kernel K7, the intersection areas (N, 5) x (M, 5) -> (N, M)
+    (`boxes_overlap_bev`, replaces `pallas_iou.boxes_overlap_bev`, the
+    overlap epilogue of the same `_launch`): K3's kernel with the other
+    epilogue;
   * kernel K6, matched pairs (N, 5) x (N, 5) -> (N,): intersection areas
     (`boxes_overlap_bev_pairwise`) or IoU (`boxes_iou_bev_pairwise`),
     replacing `pallas_iou._launch_pairwise`.
 
 The CUDA kernels are in `csrc/iou_bev.cu`: one thread per pair, the clipped
-polygon (at most 8 vertices) in registers.  What bounds them on the H100 is
-arithmetic, about 1.5k flops per pair; see the source.
+polygon (at most 8 vertices) in registers; the source counts their
+operations.
 
 All versions follow `pallas_iou._clip_area` step for step: clip A's quad by
 B's four half-planes (Sutherland-Hodgman, on-edge tolerance 1e-3, |denom|
 guard 1e-8, order-keeping compaction), shoelace area, union clamped at
 1e-6.  The wrappers launch the kernels for CUDA tensors and take the plain
 versions for CPU tensors.  `LAUNCHES` counts K3's launches,
-`PAIRWISE_LAUNCHES` K6's.
+`OVERLAP_LAUNCHES` K7's, `PAIRWISE_LAUNCHES` K6's.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 from detzero_tpu_torch import _build
 
 LAUNCHES = 0
+OVERLAP_LAUNCHES = 0
 PAIRWISE_LAUNCHES = 0
 
 _CAP = 8
@@ -48,9 +53,11 @@ def _nxt(arr, k, n):
     return torch.where(n == float(k + 1), arr[0], arr[(k + 1) % _CAP])
 
 
-def _clip_area(ca, cb, shape):
+def _clip_area(ca, cb, shape, live=None):
     """Sutherland-Hodgman intersection area; corner entries broadcast to
-    `shape`.  Masks are 0/1 floats as in the reference."""
+    `shape`.  Masks are 0/1 floats as in the reference.  `live`, when a
+    list, gets per edge of B the pairs' vertex counts (in, kept inside,
+    out), each of `shape`: the work these boxes need."""
     zero = torch.zeros(shape, dtype=torch.float32, device=ca[0][0].device)
     one = torch.ones_like(zero)
     px = [ca[k][0].expand(shape) if k < 4 else zero for k in range(_CAP)]
@@ -89,6 +96,8 @@ def _clip_area(ca, cb, shape):
             px2.append(ox)
             py2.append(oy)
             pv2.append(ov)
+        if live is not None:
+            live.append((n, sum(inside), run))
         px, py, pv, n = px2, py2, pv2, run
     area2 = zero
     for k in range(_CAP):
@@ -97,33 +106,54 @@ def _clip_area(ca, cb, shape):
     return torch.where(n >= 3.0, torch.abs(area2) * 0.5, zero)
 
 
-def boxes_iou_bev_plain(boxes_a, boxes_b):
+def boxes_overlap_bev_plain(boxes_a, boxes_b):
+    """(N, 5) x (M, 5) -> (N, M) intersection areas."""
     a = boxes_a[:, :5].float()
     b = boxes_b[:, :5].float()
     ca = [(x[:, None], y[:, None]) for x, y in _corners(a)]
     cb = [(x[None, :], y[None, :]) for x, y in _corners(b)]
-    inter = _clip_area(ca, cb, (a.shape[0], b.shape[0]))
-    area_a = (a[:, 2] * a[:, 3])[:, None]
-    area_b = (b[:, 2] * b[:, 3])[None, :]
+    return _clip_area(ca, cb, (a.shape[0], b.shape[0]))
+
+
+def boxes_iou_bev_plain(boxes_a, boxes_b):
+    inter = boxes_overlap_bev_plain(boxes_a, boxes_b)
+    area_a = (boxes_a[:, 2].float() * boxes_a[:, 3].float())[:, None]
+    area_b = (boxes_b[:, 2].float() * boxes_b[:, 3].float())[None, :]
     return inter / torch.clamp(area_a + area_b - inter, min=1e-6)
+
+
+def _matrix(boxes_a, boxes_b, iou):
+    if boxes_a.device.type == "cpu":
+        return (boxes_iou_bev_plain if iou
+                else boxes_overlap_bev_plain)(boxes_a, boxes_b)
+    a = boxes_a[:, :5].float().contiguous()
+    b = boxes_b[:, :5].float().contiguous()
+    _build.require_cuda("boxes_bev_matrix", a, b)
+    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != 5 or b.shape[1] != 5:
+        raise ValueError(f"boxes_bev_matrix: boxes must be (N, 5+), got "
+                         f"{tuple(boxes_a.shape)} and {tuple(boxes_b.shape)}")
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
+                      device=a.device)
+    rc = _build.lib().dz_iou_bev(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                 a.shape[0], b.shape[0], int(iou),
+                                 _build.stream_ptr(a.device))
+    global LAUNCHES, OVERLAP_LAUNCHES
+    if iou:
+        LAUNCHES += 1
+    else:
+        OVERLAP_LAUNCHES += 1
+    _build.check(rc, "dz_iou_bev")
+    return out
 
 
 def boxes_iou_bev(boxes_a, boxes_b):
     """Kernel K3 on CUDA tensors, its plain version on CPU tensors."""
-    if boxes_a.device.type == "cpu":
-        return boxes_iou_bev_plain(boxes_a, boxes_b)
-    a = boxes_a[:, :5].float().contiguous()
-    b = boxes_b[:, :5].float().contiguous()
-    _build.require_cuda("boxes_iou_bev", a, b)
-    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
-                      device=a.device)
-    rc = _build.lib().dz_iou_bev(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 a.shape[0], b.shape[0],
-                                 _build.stream_ptr(a.device))
-    global LAUNCHES
-    LAUNCHES += 1
-    _build.check(rc, "dz_iou_bev")
-    return out
+    return _matrix(boxes_a, boxes_b, iou=True)
+
+
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """Kernel K7 on CUDA tensors, its plain version on CPU tensors."""
+    return _matrix(boxes_a, boxes_b, iou=False)
 
 
 def boxes_overlap_bev_pairwise_plain(boxes_a, boxes_b):

@@ -1,9 +1,10 @@
 """Z-dense pillar tables, the row-padded conv layout and its neighbour maps.
 
-Port of the parts of `detzero_tpu/ops/pillars.py` that CenterPoint inference
-runs: the pillar table (both feature modes), the row LUT, principal-site
+Port of the parts of `detzero_tpu/ops/pillars.py` that CenterPoint runs:
+the pillar table (both feature modes), the row LUT, principal-site
 downsampling, the row-padded layout with its rank-by-count neighbour maps,
-the (3,1,1) z-conv and the BEV densify.  Every function returns the same
+the (3,1,1) z-conv, the BEV densify, and the PDV second stage's voxel query
+through the row LUT.  Every function returns the same
 values as its JAX counterpart; integer outputs are bit-identical.
 
 Integers stay int32 where the reference computes in int32, so that the
@@ -43,13 +44,21 @@ def _cumsum32(x):
 def segment_sum_sorted(values, seg, num_segments):
     """Sum the rows of `values` into `num_segments` bins; `seg` must be
     nondecreasing.  Differences of a float64 prefix sum at the run ends:
-    deterministic on every device, unlike a float `index_add_` on CUDA."""
+    deterministic on every device, unlike a float `index_add_` on CUDA.
+    The columns are scanned laid end to end as one vector, each relative to
+    its column's start: a prefix sum down the rows of a narrow matrix runs
+    one thread per column on CUDA (PERF.md, PR 3), the flat one is a single
+    parallel scan."""
     out = values.new_zeros((num_segments,) + values.shape[1:],
                            dtype=torch.float64)
-    if seg.numel() == 0:
+    n = seg.shape[0]
+    if n == 0:
         return out.to(values.dtype)
-    csum = torch.cumsum(values.double(), 0)
-    last = torch.ones(seg.shape[0], dtype=torch.bool, device=seg.device)
+    cols = values.double().reshape(n, -1).t()
+    flat = torch.cumsum(cols.reshape(-1), 0).reshape(cols.shape)
+    start = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    csum = (flat - start[:, None]).t().reshape(values.shape)
+    last = torch.ones(n, dtype=torch.bool, device=seg.device)
     last[:-1] = seg[1:] != seg[:-1]
     ends = csum[last]
     starts = torch.cat([ends.new_zeros((1,) + ends.shape[1:]), ends[:-1]])
@@ -257,6 +266,47 @@ def z_conv(feats, zmask_out, weight, z_stride, out_nz):
     """The final (3,1,1)-kernel z-stride conv: no BEV gather at all."""
     out = zconv_matmul(feats, weight, z_stride, out_nz)
     return torch.where(zmask_out[:, :out.shape[1], None], out, 0.0)
+
+
+def _near_first_offsets(r):
+    """The (2r+1)^3 zyx offsets ordered by L1 norm, ties in meshgrid order."""
+    ar = torch.arange(-r, r + 1, dtype=I32)
+    offs = torch.stack(torch.meshgrid(ar, ar, ar, indexing="ij"),
+                       -1).reshape(-1, 3)
+    return offs[torch.argsort(offs.abs().sum(1), stable=True)]
+
+
+def voxel_query_pillar(query_coords_zyx, lut, zmask_flat, nz: int, bev_hw,
+                       max_range: int = 1, nsample: int = 16):
+    """Neighbour voxels of integer zyx coords (M, 3) through the row LUT
+    (ny*nx,): the (2r+1)^3 offsets probed nearest first, the first
+    `nsample` occupied ones kept.  Returns idx (M, nsample) int32 rows of
+    the flat (MP*nz) slot table (0 where nothing was kept) and found
+    (M, nsample)."""
+    ny, nx = bev_hw
+    dev = query_coords_zyx.device
+    offs = _near_first_offsets(max_range).to(dev)
+    nb = query_coords_zyx.to(I32)[:, None, :] + offs[None]
+    inb = ((nb[..., 0] >= 0) & (nb[..., 0] < nz) & (nb[..., 1] >= 0)
+           & (nb[..., 1] < ny) & (nb[..., 2] >= 0) & (nb[..., 2] < nx))
+    cell = torch.clamp(nb[..., 1] * nx + nb[..., 2], 0, ny * nx - 1)
+    v = lut[cell.long()]
+    slot = torch.clamp(v - 1, min=0) * nz + torch.clamp(nb[..., 0], 0, nz - 1)
+    found = inb & (v > 0) & zmask_flat[slot.long()]
+    m, k = found.shape
+    if k <= nsample:
+        pad = (0, nsample - k)
+        return F.pad(slot, pad), F.pad(found, pad)
+    rank = torch.cumsum(found.to(I32), 1, dtype=I32) - 1
+    take = found & (rank < nsample)
+    safe_rank = torch.where(take, rank, torch.full_like(rank, nsample))
+    idx = torch.zeros((m, nsample + 1), dtype=I32, device=dev)
+    idx = idx.scatter_reduce(1, safe_rank.long(),
+                             torch.where(take, slot, torch.zeros_like(slot)),
+                             "amax")[:, :nsample]
+    fnd = _arange(nsample, idx)[None, :] < torch.clamp(
+        found.sum(1), max=nsample)[:, None]
+    return idx, fnd
 
 
 # ---------------------------------------------------------------------------

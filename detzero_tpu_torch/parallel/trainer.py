@@ -15,7 +15,10 @@ from detzero_tpu_torch.core.optim import Optimizer
 
 class Trainer:
     """Owns a model and its `Optimizer`.  `model.loss(**batch)` returns
-    (loss, aux dict)."""
+    (loss, aux dict).  `stage_hook`, as `CenterPoint.stage_hook`, is
+    called where the backward and the optimizer step begin."""
+
+    stage_hook = None
 
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer):
         self.model = model
@@ -28,8 +31,12 @@ class Trainer:
         the model's device, gnorm before clipping; nothing waits for the
         device."""
         loss, aux = self.model.loss(**batch)
+        if self.stage_hook is not None:
+            self.stage_hook("backward")
         self.optimizer.zero_grad()
         loss.backward()
+        if self.stage_hook is not None:
+            self.stage_hook("optimizer")
         gnorm = self.optimizer.step()
         self.step_count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, gnorm

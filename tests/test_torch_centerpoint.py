@@ -46,7 +46,7 @@ def both():
         pr, jm.class_ids_each_head, jm.bev_hw, jm.feature_map_stride,
         jm.voxel_size, jm.pc_range, **DECODE)))
     ref_out = dec(preds)         # == jm.predict(v, pts, pv, **DECODE)
-    model = CenterPoint(CFG, 3, dtype=torch.float32, **KW)
+    model = CenterPoint(CFG, 3, dtype=torch.float32, device="cpu", **KW)
     model.load_state_dict(convert_centerpoint(v, model), strict=True)
     return pts, pv, jax.tree.map(np.asarray, preds), \
         jax.tree.map(np.asarray, ref_out), model

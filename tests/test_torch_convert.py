@@ -57,7 +57,7 @@ def converted():
     jm = JaxCP(Config(CFG), 3, dtype=jnp.float32, **KW)
     v = jm.init(jax.random.PRNGKey(0), pts, np.ones((1, 2048), bool))
     v = randomize_stats(jax.tree.map(np.asarray, v), 1)
-    model = CenterPoint(CFG, 3, dtype=torch.float32, **KW)
+    model = CenterPoint(CFG, 3, dtype=torch.float32, device="cpu", **KW)
     model.load_state_dict(convert_centerpoint(v, model), strict=True)
     return v, model
 

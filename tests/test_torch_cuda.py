@@ -1,6 +1,7 @@
 """Each CUDA kernel of detzero_tpu_torch against its plain PyTorch version on
 the card, at small shapes, plus the tiny model (predict and one training
-loss with its gradients) on the card against the CPU.
+loss with its gradients, one-stage and two-stage) on the card against the
+CPU.
 Marked `cuda`: skipped where torch finds no CUDA device.  On a machine with
 a card:  python -m pytest tests/test_torch_cuda.py -q
 chip_smoke.py makes the same checks at the flagship path's shapes."""
@@ -27,7 +28,7 @@ def tiny(dev):
            "VOXEL_CAPACITIES": (512, 256, 128, 64), "BEV_LAYER_NUMS": (2, 2)}
     kw = dict(pc_range=(-6.4, -6.4, -2.0, 6.4, 6.4, 2.0),
               voxel_size=(0.2, 0.2, 0.5))
-    cpu = CenterPoint(cfg, 3, dtype=torch.float32, **kw)
+    cpu = CenterPoint(cfg, 3, dtype=torch.float32, device="cpu", **kw)
     cpu.init_parameters(torch.Generator().manual_seed(0))
     gpu = CenterPoint(cfg, 3, dtype=torch.bfloat16, device=dev, **kw)
     gpu.load_state_dict(cpu.state_dict())
@@ -175,6 +176,31 @@ def test_pairwise_iou_kernel(dev, kind):
     assert (got - ref).abs().max() <= 1e-5
 
 
+@pytest.mark.parametrize("n,m", [(128, 500), (37, 61)])
+def test_overlap_matrix_kernel(dev, n, m):
+    """K7 (the N x M intersection areas) against its plain version, at the
+    RoI-target shape and a ragged one: every operation rounded alike, so
+    1e-5 * the largest area covers sin/cos differing in the last ulp.  It
+    counts its own launches, not K3's."""
+    from detzero_tpu_torch.ops import iou_bev
+
+    g = torch.Generator().manual_seed(6)
+    a = torch.rand((n, 5), generator=g) * torch.tensor(
+        [16.0, 16.0, 4.0, 4.0, 6.28]) + torch.tensor([-8, -8, 0.5, 0.5, -3.14])
+    b = torch.cat([a[torch.randint(0, n, (m // 2,), generator=g)]
+                   + torch.randn((m // 2, 5), generator=g) * 0.3,
+                   torch.rand((m - m // 2, 5), generator=g) * 16 - 8])
+    b[:, 2:4] = b[:, 2:4].abs() + 0.2
+    a, b = a.to(dev), b.to(dev)
+    ref = iou_bev.boxes_overlap_bev_plain(a, b)
+    n3, n7 = iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES
+    got = iou_bev.boxes_overlap_bev(a, b)
+    torch.cuda.synchronize()
+    assert (iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES) == (n3, n7 + 1)
+    assert got.shape == (n, m) and int((ref > 0).sum()) > m // 4
+    assert (got - ref).abs().max() <= 1e-5 * float(ref.max())
+
+
 def test_iou_and_walk_kernels(dev):
     from detzero_tpu_torch.ops import iou_bev, nms
 
@@ -241,7 +267,7 @@ def test_tiny_train_loss_card_vs_cpu(dev, seed):
            "VOXEL_CAPACITIES": (2048, 1024, 512, 256)}
     kw = dict(pc_range=(-6.4, -6.4, -2.0, 6.4, 6.4, 2.0),
               voxel_size=(0.2, 0.2, 0.5), max_objs=8)
-    cpu = CenterPoint(cfg, 3, dtype=torch.float32, **kw)
+    cpu = CenterPoint(cfg, 3, dtype=torch.float32, device="cpu", **kw)
     cpu.init_parameters(torch.Generator().manual_seed(0))
     rng = np.random.RandomState(seed)
     pts = rng.uniform(-6, 6, (2, 2048, 5)).astype(np.float32)
@@ -282,3 +308,135 @@ def test_tiny_train_loss_card_vs_cpu(dev, seed):
             assert abs(norm_ratio - 1.0) <= 1e-2
         else:
             assert abs(norm_ratio - 1.0) <= 0.25
+
+
+TWO_STAGE = {"SECOND_STAGE": True, "ROI_BUDGET": 16, "ROI_GRID_SIZE": 3,
+             "ROI_ATTENTION": True}
+
+
+def test_tiny_two_stage_card_vs_cpu(dev):
+    """The two-stage model on the tiny geometry, the card against the CPU
+    from the same weights:
+      * predict (bf16 on the card, K2 in bf16): the first-stage head outputs
+        and the multi-scale tables within 5e-2 * max(|ref|, 1), and the RoI
+        head on the CPU's proposals and tables within the same bound (its
+        proposals come from a top-k of the heatmaps, which bf16 rounding
+        reorders, so the end-to-end boxes are held only to be finite);
+        launches K2 20, K3 1, walk 1, no K1 (the dense table is gathered);
+      * the training loss at batch 2 in float32 on the card (K4 on float32
+        tables), float32 on both sides: the loss and each RoI term within
+        1e-3 relative, and launches K4 39, K5 20, K6 2, K3 2, walk 2, K7 2;
+      * the RoI head, its targets (K7) and loss alone in train mode on the
+        CPU's proposals, BEV map and tables (the first stage's rounding,
+        which its batch norms amplify, left out): every RoI head gradient
+        leaf with at most 1e-3 of its elements beyond 1e-3 * max|CPU leaf|
+        + 1e-6, as tests/test_torch_two_stage_train.py bounds the port
+        against the reference (a max-pool or ReLU decision flipped by
+        rounding)."""
+    from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
+    from detzero_tpu_torch.ops import iou_bev, nms, rowpad_conv, stream_vfe
+
+    cfg = {"CLASS_IDS_EACH_HEAD": [[0], [1, 2]],
+           "VOXEL_CAPACITIES": (2048, 1024, 512, 256), **TWO_STAGE}
+    kw = dict(pc_range=(-6.4, -6.4, -2.0, 6.4, 6.4, 2.0),
+              voxel_size=(0.2, 0.2, 0.5), max_objs=8)
+    cpu = CenterPoint(cfg, 3, dtype=torch.float32, device="cpu", **kw)
+    cpu.init_parameters(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-6, 6, (2, 2048, 5)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.8, 1.8, (2, 2048))
+    p = torch.from_numpy(pts)
+    v = torch.ones(2, 2048, dtype=torch.bool)
+
+    def counts():
+        return (stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES, iou_bev.LAUNCHES,
+                nms.LAUNCHES, rowpad_conv.CONV_LAUNCHES,
+                rowpad_conv.DW_LAUNCHES, iou_bev.PAIRWISE_LAUNCHES,
+                iou_bev.OVERLAP_LAUNCHES)
+
+    gpu = CenterPoint(cfg, 3, dtype=torch.bfloat16, device=dev, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    with torch.no_grad():
+        ref_in = cpu.prepare(p[:1], v[:1])
+        ref_3d = cpu.backbone3d(*ref_in)
+        ref_bev = cpu.backbone2d(ref_3d["spatial_features"])
+        ref_heads = cpu.center_head(ref_bev)
+        ref_prop = cpu.proposals(ref_heads)
+        ref_roi = cpu.refine(ref_prop, ref_bev,
+                             ref_3d["multi_scale_3d_features"])
+        n0 = counts()
+        got_in = gpu.prepare(p[:1].to(dev), v[:1].to(dev))
+        got_3d = gpu.backbone3d(*got_in)
+        got_bev = gpu.backbone2d(got_3d["spatial_features"].bfloat16())
+        got_heads = gpu.center_head(got_bev)
+        gpu.refine(gpu.proposals(got_heads), got_bev,
+                   got_3d["multi_scale_3d_features"])
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), n0)) == (
+            0, 20, 1, 1, 0, 0, 0, 0)
+        to_dev = {k: x.to(dev) if torch.is_tensor(x) else x
+                  for k, x in ref_prop.items()}
+        ms = {name: {k: x.to(dev) for k, x in lvl.items()}
+              for name, lvl in ref_3d["multi_scale_3d_features"].items()}
+        roi_on_ref = gpu.refine(to_dev, ref_bev.to(dev).bfloat16(), ms)
+        out = gpu.predict(p[:1].to(dev), v[:1].to(dev))
+
+    def close(ref, got, what):
+        err = float((got.float().cpu() - ref.float()).abs().max())
+        assert err <= 5e-2 * max(float(ref.abs().max()), 1.0), what
+
+    for r, g in zip(ref_heads, got_heads):
+        for k in r:
+            close(r[k], g[k], k)
+    for name, r in ref_3d["multi_scale_3d_features"].items():
+        close(r["features"], got_3d["multi_scale_3d_features"][name][
+            "features"], name)
+    for k in ("cls_logit", "reg_deltas"):
+        close(ref_roi[k], roi_on_ref[k], k)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in out.values())
+
+    gb = np.zeros((2, 8, 9), np.float32)
+    gb[:, :4, :7] = ref_roi["rois"][0, :4].numpy() + 0.05
+    gv = np.zeros((2, 8), bool)
+    gv[:, :4] = True
+    batch = [torch.from_numpy(a) for a in
+             (pts, np.ones((2, 2048), bool), gb,
+              np.zeros((2, 8), np.int32), gv)]
+    draws = cpu.roi_draws(2, torch.Generator().manual_seed(1))
+    loss_c, aux_c = cpu.loss(*batch, roi_draws=draws)
+    loss_c.backward()
+    f32 = CenterPoint(cfg, 3, dtype=torch.float32, device=dev, **kw)
+    f32.load_state_dict(cpu.state_dict())
+    n0 = counts()
+    loss_g, aux_g = f32.loss(*[t.to(dev) for t in batch],
+                             roi_draws=tuple(d.to(dev) for d in draws))
+    loss_g.backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), n0)) == (
+        0, 0, 2, 2, 39, 20, 2, 2)
+    ref = float(loss_c.detach())
+    assert abs(float(loss_g.detach()) - ref) <= 1e-3 * abs(ref)
+    for k in ("roi_cls", "roi_reg", "roi_corner"):
+        r, g = aux_c[k].detach(), aux_g[k].detach().cpu()
+        assert float((g - r).abs().max()) \
+            <= 1e-3 * max(float(r.abs().max()), 1e-3), k
+
+    grads = []
+    for m, d in ((cpu, "cpu"), (f32, dev)):
+        m.zero_grad(set_to_none=True)
+        m.train()
+        roi = m.refine({k: x.to(d) for k, x in ref_prop.items()},
+                       ref_bev.to(d), {n: {k: x.to(d) for k, x in lvl.items()}
+                                       for n, lvl in ref_3d[
+                                           "multi_scale_3d_features"].items()})
+        roi_loss, _ = m.roi_loss(roi, batch[2][:1].to(d), batch[4][:1].to(d),
+                                 tuple(x[:1].to(d) for x in draws))
+        roi_loss.mean().backward()
+        m.eval()
+        grads.append({k: q.grad.cpu() for k, q in m.named_parameters()
+                      if k.startswith("roi_head.")})
+    assert len(grads[0]) > 30
+    for k, r in grads[0].items():
+        bound = 1e-3 * float(r.abs().max()) + 1e-6
+        n_out = int(((grads[1][k] - r).abs() > bound).sum())
+        assert n_out <= 1e-3 * r.numel(), (k, n_out)

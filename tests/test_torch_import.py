@@ -1,8 +1,9 @@
-"""detzero_tpu_torch imports neither jax, flax nor detzero_tpu (predict and
-one training step run with jax blocked), and on CPU tensors every kernel
-wrapper takes its plain version (no launch counted);
-on a tensor that is neither CPU nor CUDA a wrapper raises instead of falling
-back."""
+"""detzero_tpu_torch imports neither jax, flax nor detzero_tpu (predict, one
+training step and the two-stage predict and loss run with jax blocked), and
+on CPU tensors every kernel wrapper takes its plain version (no launch
+counted); on a tensor that is neither CPU nor CUDA a wrapper raises instead
+of falling back; and without a card the model is built only when the
+caller asks for the CPU."""
 
 import subprocess
 import sys
@@ -30,6 +31,7 @@ MAIN_PATH = [
     "detzero_tpu_torch.ops.gaussian", "detzero_tpu_torch.ops.losses",
     "detzero_tpu_torch.ops.iou3d", "detzero_tpu_torch.core.optim",
     "detzero_tpu_torch.parallel.trainer",
+    "detzero_tpu_torch.models.detection.pdv_head",
 ]
 
 SCRIPT = """
@@ -45,7 +47,8 @@ from detzero_tpu_torch.ops import iou_bev, nms, rowpad_conv, stream_vfe
 cfg = {{"CLASS_IDS_EACH_HEAD": [[0], [1, 2]],
         "VOXEL_CAPACITIES": (256, 128, 64, 32), "BEV_LAYER_NUMS": (1, 1)}}
 m = CenterPoint(cfg, 3, pc_range=(-3.2, -3.2, -2.0, 3.2, 3.2, 2.0),
-                voxel_size=(0.2, 0.2, 0.5), dtype=torch.float32)
+                voxel_size=(0.2, 0.2, 0.5), dtype=torch.float32,
+                device="cpu")
 m.init_parameters(torch.Generator().manual_seed(0))
 rng = np.random.RandomState(0)
 pts = torch.from_numpy(rng.uniform(-3, 3, (1, 512, 5)).astype(np.float32))
@@ -64,15 +67,30 @@ loss, aux, gnorm = Trainer(m, opt).step(dict(
                                                           dtype=torch.bool),
     gt_boxes=gb, gt_classes=torch.zeros(2, 4, dtype=torch.int32),
     gt_valid=gv))
+# the two-stage model: predict, and one loss with its gradient
+cfg2 = dict(cfg, SECOND_STAGE=True, ROI_BUDGET=8, ROI_GRID_SIZE=2,
+            ROI_ATTENTION=True)
+m2 = CenterPoint(cfg2, 3, pc_range=(-3.2, -3.2, -2.0, 3.2, 3.2, 2.0),
+                 voxel_size=(0.2, 0.2, 0.5), dtype=torch.float32,
+                 device="cpu")
+m2.init_parameters(torch.Generator().manual_seed(0))
+out2 = m2.predict(pts, torch.ones(1, 512, dtype=torch.bool))
+loss2, _ = m2.loss(pts.expand(2, -1, -1), torch.ones(2, 512, dtype=torch.bool),
+                   gb, torch.zeros(2, 4, dtype=torch.int32), gv,
+                   generator=torch.Generator().manual_seed(1))
+loss2.backward()
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu")
              and sys.modules[k] is not None)
 print(json.dumps({{"bad": bad, "kept": int(out["mask"].sum()),
     "finite": bool(torch.isfinite(loss) and torch.isfinite(gnorm)),
+    "two_stage": [list(out2["boxes"].shape), int(out2["mask"].sum()),
+                  bool(torch.isfinite(out2["boxes"]).all()),
+                  bool(torch.isfinite(loss2))],
     "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
                  rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
-                 iou_bev.LAUNCHES, iou_bev.PAIRWISE_LAUNCHES,
-                 nms.LAUNCHES]}}))
+                 iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
+                 iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES]}}))
 """
 
 
@@ -87,7 +105,8 @@ def test_port_imports_no_jax_and_cpu_takes_plain_versions():
     assert res["bad"] == []
     assert res["kept"] > 0
     assert res["finite"]
-    assert res["launches"] == [0] * 7
+    assert res["two_stage"] == [[1, 8, 7], 8, True, True]
+    assert res["launches"] == [0] * 8
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -127,7 +146,27 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         iou_bev.boxes_iou_bev_pairwise(torch.empty(4, 5, **meta),
                                        torch.empty(4, 5, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        iou_bev.boxes_overlap_bev(torch.empty(4, 5, **meta),
+                                  torch.empty(7, 5, **meta))
     assert [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
             rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
-            iou_bev.LAUNCHES, iou_bev.PAIRWISE_LAUNCHES,
-            nms.LAUNCHES] == [0] * 7
+            iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
+            iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES] == [0] * 8
+
+
+def test_model_needs_a_device_without_cuda(monkeypatch):
+    """With no card, CenterPoint() without a device raises instead of
+    building on the CPU, for either stage; device="cpu" builds there."""
+    from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = dict(pc_range=(-3.2, -3.2, -2.0, 3.2, 3.2, 2.0),
+              voxel_size=(0.2, 0.2, 0.5))
+    cfg = {"VOXEL_CAPACITIES": (256, 128, 64, 32), "BEV_LAYER_NUMS": (1, 1)}
+    for extra in ({}, {"SECOND_STAGE": True, "ROI_BUDGET": 8,
+                       "ROI_GRID_SIZE": 2}):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CenterPoint(dict(cfg, **extra), 3, **kw)
+        m = CenterPoint(dict(cfg, **extra), 3, device="cpu", **kw)
+        assert {p.device.type for p in m.parameters()} == {"cpu"}

@@ -32,7 +32,7 @@ STEPS = 50
 def model():
     """Every parameter random (init leaves biases at zero, which would make
     max|p| of a one-element leaf meaningless as a scale)."""
-    m = CenterPoint(CFG, 3, dtype=torch.float32, **KW)
+    m = CenterPoint(CFG, 3, dtype=torch.float32, device="cpu", **KW)
     g = torch.Generator().manual_seed(3)
     with torch.no_grad():
         for p in m.parameters():
@@ -73,7 +73,7 @@ def test_optimizer_matches_optax(model, name, steps):
     params = jax.tree.map(jnp.asarray, params0)
     state = tx.init(params)
 
-    m = CenterPoint(CFG, 3, dtype=torch.float32, **KW)
+    m = CenterPoint(CFG, 3, dtype=torch.float32, device="cpu", **KW)
     m.load_state_dict(model.state_dict())
     opt = optim.build_optimizer(cfg, steps, m)
     named = dict(m.named_parameters())

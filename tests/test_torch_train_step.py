@@ -83,7 +83,8 @@ def step():
     """The reference's loss, gradients and statistics, and one port Trainer
     step from the same weights (drawn by the port, converted to flax)."""
     batch = make_batch()
-    model = CenterPoint(TRAIN_CFG, 3, dtype=torch.float32, **KW)
+    model = CenterPoint(TRAIN_CFG, 3, dtype=torch.float32, device="cpu",
+                        **KW)
     model.init_parameters(torch.Generator().manual_seed(0))
     v = randomize_stats(to_flax(model.state_dict()), 4)
     jm = JaxCP(Config(TRAIN_CFG), 3, dtype=jnp.float32, **KW)
@@ -188,7 +189,8 @@ def test_targets_and_head_loss(step):
     # the same head outputs (the port's, in eval mode) through both losses
     model = step[4]
     with torch.no_grad(), model._mode(False):
-        tp = model.network(*model.prepare(tb["points"], tb["points_valid"]))
+        tp, _ = model.network(*model.prepare(tb["points"],
+                                             tb["points_valid"]))
     preds = [{k: np.asarray(x) for k, x in h.items()} for h in tp]
     lkw = dict(hw=jm.bev_hw, feature_map_stride=jm.feature_map_stride,
                voxel_size=jm.voxel_size, pc_range=jm.pc_range)
