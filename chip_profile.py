@@ -68,8 +68,6 @@ def main():
         return 1
     import chip_smoke as cs
     from detzero_tpu_torch import _build
-    from detzero_tpu_torch.core.optim import build_optimizer
-    from detzero_tpu_torch.parallel.trainer import Trainer
 
     device = torch.device("cuda", 0)
     print(f"[device] {cs.nvidia_smi_line()}")
@@ -84,11 +82,9 @@ def main():
         model.predict(p, v)
     profile("two_stage_predict", lambda: model.predict(p, v))
 
-    pts, pv = cs.entry_points(batch=cs.TRAIN_BATCH)
-    gt = cs.make_gt(cs.TRAIN_BATCH, cs.FLAGSHIP_KW["max_objs"], 48, 60.0)
-    batch = cs.train_batch(pts, pv, gt, device)
+    batch = cs.flagship_train_batch(device)
     batch["generator"] = torch.Generator(device=device).manual_seed(5)
-    trainer = Trainer(model, build_optimizer(cs.FLAGSHIP_OPT, 5, model))
+    trainer = cs.flagship_trainer(model)
     trainer.step(batch)
     profile("two_stage_train_step", lambda: trainer.step(batch))
     return 0

@@ -8,7 +8,9 @@ Phases, one line or more each; any failure raises and the exit code is 1:
   2. build: compile detzero_tpu_torch/csrc/*.cu from this checkout;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes of the flagship path, with stated tolerances
-     and CUDA-event times;
+     and CUDA-event times; K8 (the plan's neighbour-rank maps) on all 10
+     maps of the flagship plan, equal on every element, beside its
+     `torch.searchsorted` yardstick;
   4. predict: flagship CenterPoint (160k points, 40x1504x1504 grid, bf16,
      random weights from a seeded torch.Generator) on the input of
      __graft_entry__.entry(): launch counts of one frame, frames/s over 5
@@ -40,7 +42,16 @@ Phases, one line or more each; any failure raises and the exit code is 1:
   9. the tiny two-stage model, card against CPU: predict (first-stage
      heads, multi-scale tables, the RoI head on the CPU's proposals), the
      float32 training loss and its RoI terms, and the RoI head's gradient
-     from its own loss on the CPU's proposals.
+     from its own loss on the CPU's proposals;
+ 10. sliding kernel: K9 (rowpad_conv_sliding) against K4 (max abs diff
+     printed) and against the plain version at the flagship training step's
+     'subm' shapes (stem, L0, L1, L2, L3);
+ 11. sliding train: phase 6's step with `rowpad_conv.USE_SLIDING` set for
+     this phase only, on fresh weights from the same seed: launch counts
+     (K9 for the 17 'subm' forward convs), its warm-up loss against phase
+     6's, ms/step over 3 timed steps after the warm-up step, stage times,
+     peak memory.
+Every counted path also counts K8: 10 launches a sample (the plan's maps).
 Per-stage times are CUDA events that the model's and the trainer's
 `stage_hook` records at their own stage boundaries.
 The line before the card's line carries every kernel's numbers as JSON:
@@ -48,9 +59,11 @@ launches summed over the four counted paths, each path's own in
 `launches_by_path`; `bound_ms`, the least time the card could take for the
 timed work (the larger of its bytes, each input read once and each output
 written once, over 3.35 TB/s, and its operations over the card's peak for
-their type, counted from this run's inputs), and `bound_by`; `library_ms`,
-null: no single PyTorch call computes any of these functions.  The last
-line is {"ok": true, "device": {...}}.
+their type, counted from this run's inputs), and `bound_by`; `library_ms`:
+for K8 its yardstick, `torch.searchsorted` over the target rows plus the
+found test; null for the others, since no single PyTorch call computes a
+sparse row-pad conv, its weight gradient, a rotated-box overlap, the stream
+VFE or the greedy walk.  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -114,6 +127,10 @@ KERNELS = {
                                "detzero_tpu/ops/pallas_iou.py:208"),
     "boxes_overlap_bev": ("detzero_tpu_torch/csrc/iou_bev.cu",
                           "detzero_tpu/ops/pallas_iou.py:316"),
+    "rowpad_nbr": ("detzero_tpu_torch/csrc/rowpad_nbr.cu",
+                   "detzero_tpu/ops/pallas_pillar.py:483"),
+    "rowpad_conv_sliding": ("detzero_tpu_torch/csrc/rowpad_conv_sliding.cu",
+                            "detzero_tpu/ops/pallas_pillar.py:390"),
 }
 # kernel name -> (module of its wrapper, launch counter)
 COUNTERS = {
@@ -125,8 +142,14 @@ COUNTERS = {
     "rowpad_conv_dw": ("rowpad_conv", "DW_LAUNCHES"),
     "boxes_iou_bev_pairwise": ("iou_bev", "PAIRWISE_LAUNCHES"),
     "boxes_overlap_bev": ("iou_bev", "OVERLAP_LAUNCHES"),
+    "rowpad_nbr": ("rowpad_nbr", "LAUNCHES"),
+    "rowpad_conv_sliding": ("rowpad_conv", "SLIDING_LAUNCHES"),
 }
-# H100 SXM (NVIDIA's data sheet): device memory rate and dense peaks
+# K8's launches: the 10 neighbour maps of each sample's plan
+NBR_MAPS = 10
+# H100 SXM (NVIDIA's data sheet): device memory rate and dense peaks; the
+# data sheet gives no int32 rate, so K8's int32 compares are counted at the
+# CUDA cores' float32 peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 # float32 operations of the rotated-box overlap that the data need (a
@@ -263,13 +286,17 @@ def clip_ops(a, b, pairwise=False, iou=False):
 
 def sum_cases(cases):
     """One record for a kernel timed at several shapes: the worst error,
-    the summed times and bounds, bound_by of the largest bound."""
+    the summed times (the library call's too, where it has one) and bounds,
+    bound_by of the largest bound."""
     top = max(cases, key=lambda c: c["bound_ms"])
-    return dict(max_abs_err=max(c["max_abs_err"] for c in cases),
-                ms=sum(c["ms"] for c in cases),
-                plain_ms=sum(c["plain_ms"] for c in cases),
-                bound_ms=sum(c["bound_ms"] for c in cases),
-                bound_by=top["bound_by"], cases=cases)
+    rec = dict(max_abs_err=max(c["max_abs_err"] for c in cases),
+               ms=sum(c["ms"] for c in cases),
+               plain_ms=sum(c["plain_ms"] for c in cases),
+               bound_ms=sum(c["bound_ms"] for c in cases),
+               bound_by=top["bound_by"], cases=cases)
+    if "library_ms" in top:
+        rec["library_ms"] = sum(c["library_ms"] for c in cases)
+    return rec
 
 
 def conv_pairs(nbr, zm_in, zm_out, nz, mode, z_stride):
@@ -301,6 +328,116 @@ def conv_work(table, nbr, zm_in, zm_out, nz, cin, cout, mode, z_stride,
     n_bytes = nbytes(table, nbr) + 27 * cin * cout * 2 \
         + zm_out.numel() + extra_bytes
     return n_bytes, ops
+
+
+def nbr_cases(plan):
+    """The 10 neighbour maps of a row-pad plan as (name, xq, x_in, mode),
+    the x-coords rebuilt from the plan as augment_plan_rowpad builds them."""
+    from detzero_tpu_torch.ops import pillars
+
+    xq = [pillars.rowpad_xcoords(e["coords2d"][:, 1], e["rp_gidx"],
+                                 e["rp_gvalid"]) for e in plan[:4]]
+    cases = [(f"subm L{lv}", xq[lv], xq[lv], "subm") for lv in range(4)]
+    for lv in range(3):
+        cases += [(f"down L{lv}->L{lv + 1}", xq[lv + 1], xq[lv], "down"),
+                  (f"up L{lv + 1}->L{lv}", xq[lv], xq[lv + 1], "up")]
+    return cases
+
+
+def _nbr_taps(xq, x_in, mode):
+    """Per tap row dy (3, ny_out): the clamped target row and whether it
+    exists; per dx (3, ny_out, b_out): the target x-coord and whether the
+    query is live and x' whole ('up')."""
+    import torch
+    from detzero_tpu_torch.ops.pillars import NBR_BIG
+
+    ny_in = x_in.shape[0]
+    i = torch.arange(xq.shape[0], device=xq.device)
+    d = torch.arange(-1, 2, dtype=xq.dtype, device=xq.device)
+    s = (2 * i if mode == "down" else i)[None, :] + d[:, None]
+    if mode == "up":
+        rv = (s >= 0) & (s % 2 == 0) & (s // 2 < ny_in)
+        s = torch.div(s, 2, rounding_mode="floor")
+    else:
+        rv = (s >= 0) & (s < ny_in)
+    q = xq[None] + d[:, None, None]
+    ok = (xq < NBR_BIG)[None].expand_as(q)
+    if mode == "down":
+        q = 2 * xq[None] + d[:, None, None]
+    elif mode == "up":
+        ok = ok & ((q + 2) % 2 == 0)
+        q = torch.div(q + 2, 2, rounding_mode="floor") - 1
+    return s.clamp(0, ny_in - 1), rv, q, ok
+
+
+def nbr_ops(xq, x_in, mode):
+    """The integer operations K8 needs on these inputs: for each live query
+    and each tap whose target row exists (and, in 'up', whose x' is whole),
+    one compare for 'smaller' and one for 'equal' against each live x-coord
+    of the target row."""
+    from detzero_tpu_torch.ops.pillars import NBR_BIG
+
+    rows, rv, _, ok = _nbr_taps(xq, x_in, mode)
+    live = (x_in < NBR_BIG).sum(1).double()[rows] * rv       # (3, ny_out)
+    per_row = ok.sum(2).double()                             # (3dx, ny_out)
+    return 2.0 * float((live[:, None, :] * per_row[None]).sum())
+
+
+def nbr_searchsorted(xq, x_in, mode):
+    """K8's yardstick: one `torch.searchsorted` of the 9 taps' x' in their
+    x-sorted target rows (the lower bound of x' is the count of smaller
+    x-coords, the fill NBR_BIG sorting last) plus the found test, as the
+    map (ny_out, 16, b_out)."""
+    import torch
+
+    rows, rv, q, ok = _nbr_taps(xq, x_in, mode)
+    b_in = x_in.shape[1]
+    ny_out, b_out = xq.shape
+    xt = x_in[rows]                                  # (3dy, ny_out, b_in)
+    vals = q.permute(1, 0, 2).reshape(1, ny_out, 3 * b_out).expand(
+        3, -1, -1).contiguous()                      # (3dy, ny_out, 3dx*b)
+    rank = torch.searchsorted(xt, vals, out_int32=True)
+    fnd = torch.gather(xt, 2, rank.clamp(max=b_in - 1).long()) == vals
+    fnd &= rv[:, :, None]
+    fnd &= ok.permute(1, 0, 2).reshape(1, ny_out, 3 * b_out)
+    nbr = torch.where(fnd, rank, b_in).reshape(3, ny_out, 3, b_out)
+    nbr = nbr.permute(1, 0, 2, 3).reshape(ny_out, 9, b_out)
+    return torch.cat([nbr, nbr.new_full((ny_out, 7, b_out), b_in)], 1)
+
+
+def check_nbr(plan):
+    """K8 against its plain version (`pillars.rowpad_nbr_rank`) on the card,
+    all 10 maps of this plan: integers, equal on every element; its
+    `torch.searchsorted` yardstick must build the same maps.  Returns K8's
+    record, one case a map."""
+    import torch
+    from detzero_tpu_torch.ops import pillars, rowpad_nbr
+
+    cases = []
+    for name, q, x_in, mode in nbr_cases(plan):
+        ref = pillars.rowpad_nbr_rank(q, x_in, mode)
+        got = rowpad_nbr.rowpad_nbr(q, x_in, mode)
+        lib = nbr_searchsorted(q, x_in, mode)
+        torch.cuda.synchronize()
+        diff = int((got != ref).sum())
+        if diff or not torch.equal(lib, ref):
+            raise AssertionError(f"rowpad_nbr {name}: {diff} elements differ "
+                                 f"from the plain version; yardstick equal: "
+                                 f"{torch.equal(lib, ref)}")
+        ms = time_ms(lambda: rowpad_nbr.rowpad_nbr(q, x_in, mode))
+        pms = time_ms(lambda: pillars.rowpad_nbr_rank(q, x_in, mode),
+                      iters=3)
+        lms = time_ms(lambda: nbr_searchsorted(q, x_in, mode), iters=3)
+        rc = with_bound(dict(case=name, max_abs_err=float(diff), ms=ms,
+                             plain_ms=pms, library_ms=lms),
+                        nbytes(q, x_in, got), nbr_ops(q, x_in, mode), "f32")
+        cases.append(rc)
+        print(f"[kernels] rowpad_nbr {name} {tuple(got.shape)}: "
+              f"{int((ref[:, :9] < x_in.shape[1]).sum())} taps found, 0 "
+              f"elements differ, {ms:.4f} ms vs plain {pms:.3f} ms, "
+              f"searchsorted yardstick {lms:.3f} ms, bound "
+              f"{rc['bound_ms']:.5f} ms ({rc['bound_by']})")
+    return sum_cases(cases)
 
 
 def clustered_boxes(device, n=200, per=5, seed=2):
@@ -433,6 +570,8 @@ def check_kernels(model, pts, pv, device):
     # K2's record: the worst error, the summed times and bounds of its four
     # shapes
     rec["rowpad_conv_fused"] = sum_cases(cases)
+    # K8 on the 10 maps of this frame's plan
+    rec["rowpad_nbr"] = check_nbr(plan)
 
     # K3 on 1000 x 1000 boxes with real overlaps: 200 clusters of 5
     # jittered boxes.  Both versions round every operation alike; the
@@ -555,7 +694,7 @@ def run_predict(device):
     print(f"[predict] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
-                 "boxes_iou_bev": 1, "nms_walk": 1})
+                 "boxes_iou_bev": 1, "nms_walk": 1, "rowpad_nbr": NBR_MAPS})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     for k, t in out.items():
@@ -593,10 +732,12 @@ def run_predict(device):
 
 def check_tiny(device):
     """The card (kernels, bf16) against the CPU (plain versions, f32) on the
-    tiny geometry with the same weights.  bf16 rounds at every layer (2^-8
-    relative); over the ~30 layers of the path that grows to about 2e-2,
-    so the tolerance is 5e-2 * max(|ref|, 1)."""
+    tiny geometry with the same weights: the plan's 10 neighbour maps (K8
+    on the card) equal to the CPU's; the head outputs within 5e-2 *
+    max(|ref|, 1), since bf16 rounds at every layer (2^-8 relative) and over
+    the ~30 layers of the path that grows to about 2e-2."""
     import torch
+    from detzero_tpu_torch.ops import rowpad_nbr
 
     pts, pv = entry_points(2048, seed=0)
     pts[..., :2] *= 6.0 / 70.0
@@ -604,6 +745,24 @@ def check_tiny(device):
     cpu = build_model(TINY_CFG, TINY_KW, torch.float32, "cpu")
     gpu = build_model(TINY_CFG, TINY_KW, torch.bfloat16, device)
     gpu.load_state_dict(cpu.state_dict())
+    plans = []
+    reset_counts()
+    for model, dev in ((cpu, "cpu"), (gpu, device)):
+        p, v = (torch.from_numpy(a[0]).to(dev) for a in (pts, pv))
+        plans.append(model.build_plan(model.build_table(p, v)))
+    n_maps = 0
+    for lv, (c, g) in enumerate(zip(*plans)):
+        for key in ("rp_nbr", "rp_down_nbr", "rp_up_nbr"):
+            if key in c:
+                n_maps += 1
+                if not torch.equal(g[key].cpu(), c[key]):
+                    raise AssertionError(f"tiny plan L{lv} {key}: the card's "
+                                         f"map differs from the CPU's")
+    if (n_maps, rowpad_nbr.LAUNCHES) != (NBR_MAPS, NBR_MAPS):
+        raise AssertionError(f"tiny plan: {n_maps} maps compared, "
+                             f"{rowpad_nbr.LAUNCHES} K8 launches")
+    print(f"[predict] tiny plan card vs CPU: all {n_maps} neighbour maps "
+          f"equal")
     ref = cpu.forward_one(torch.from_numpy(pts[0]), torch.from_numpy(pv[0]))
     got = gpu.forward_one(torch.from_numpy(pts[0]).to(device),
                           torch.from_numpy(pv[0]).to(device))
@@ -793,30 +952,14 @@ def check_pairwise(model, batch):
                       n_ops, "f32")
 
 
-def run_train(device):
-    """Phase 5 and 6.  Returns (kernel records of phase 5, {kernel name:
-    launches in the counted step})."""
+def timed_steps(tag, model, trainer, batch, device, want, timed=3):
+    """`timed` counted training steps, each held to the launch counts
+    `want` and to a finite loss and gradient norm: prints each step, the
+    launches, the aux terms, ms/step, samples/s and peak memory, then the
+    stage times of one more step.  Returns the last step's launches."""
     import torch
-    from detzero_tpu_torch.core.optim import build_optimizer
-    from detzero_tpu_torch.parallel.trainer import Trainer
 
-    pts, pv = entry_points(batch=TRAIN_BATCH)
-    gt = make_gt(TRAIN_BATCH, FLAGSHIP_KW["max_objs"], 48, 60.0)
-    batch = train_batch(pts, pv, gt, device)
-    model = build_model(FLAGSHIP_CFG, FLAGSHIP_KW, torch.bfloat16, device)
-    rec = check_train_kernels(model, batch, device)
-    torch.cuda.empty_cache()
-
-    timed = 3
-    trainer = Trainer(model, build_optimizer(FLAGSHIP_OPT, timed + 2, model))
-    trainer.step(batch)                              # warm-up step
-    torch.cuda.synchronize()
-    rec["boxes_iou_bev_pairwise"] = check_pairwise(model, batch)
-    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    want = dict.fromkeys(COUNTERS, 0)
-    want.update({"stream_rowpad_feats": TRAIN_BATCH, "rowpad_conv": 39,
-                 "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2})
     times = []
     for i in range(timed):
         start = torch.cuda.Event(enable_timing=True)
@@ -829,27 +972,64 @@ def run_train(device):
         launches = read_counts()
         times.append(start.elapsed_time(end))
         if launches != want:
-            raise AssertionError(f"train step {i}: launch counts "
+            raise AssertionError(f"{tag} step {i}: launch counts "
                                  f"{launches}, expected {want}")
         if not (torch.isfinite(loss) and torch.isfinite(gnorm)):
-            raise AssertionError(f"train step {i}: loss {float(loss)}, "
+            raise AssertionError(f"{tag} step {i}: loss {float(loss)}, "
                                  f"gnorm {float(gnorm)}")
-        print(f"[train] step {i}: {times[-1]:.2f} ms, loss "
+        print(f"[{tag}] step {i}: {times[-1]:.2f} ms, loss "
               f"{float(loss):.4f}, gnorm {float(gnorm):.4f}, lr "
               f"{trainer.optimizer.lr:.3g}")
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    print(f"[train] launches in one step: {launches}")
-    print("[train] aux: " + ", ".join(f"{k} {float(v.mean()):.4f}"
-                                      for k, v in aux.items()))
+    print(f"[{tag}] launches in one step: {launches}")
+    print(f"[{tag}] aux: " + ", ".join(f"{k} {float(v.mean()):.4f}"
+                                       for k, v in aux.items()))
     ms = sum(times) / timed
-    print(f"[train] flagship batch {TRAIN_BATCH}, {timed} steps: {ms:.2f} "
+    print(f"[{tag}] flagship batch {TRAIN_BATCH}, {timed} steps: {ms:.2f} "
           f"ms/step ({', '.join(f'{t:.2f}' for t in times)}), "
           f"{1000.0 * TRAIN_BATCH / ms:.3f} samples/s, peak memory "
           f"{peak:.2f} GiB")
     st = stage_times(lambda: trainer.step(batch), [model, trainer])
-    print("[train] stage ms: " + ", ".join(f"{k} {t:.2f}"
-                                           for k, t in st.items()))
-    return rec, launches
+    print(f"[{tag}] stage ms: " + ", ".join(f"{k} {t:.2f}"
+                                            for k, t in st.items()))
+    return launches
+
+
+def flagship_trainer(model, timed=3):
+    from detzero_tpu_torch.core.optim import build_optimizer
+    from detzero_tpu_torch.parallel.trainer import Trainer
+
+    return Trainer(model, build_optimizer(FLAGSHIP_OPT, timed + 2, model))
+
+
+def flagship_train_batch(device):
+    pts, pv = entry_points(batch=TRAIN_BATCH)
+    gt = make_gt(TRAIN_BATCH, FLAGSHIP_KW["max_objs"], 48, 60.0)
+    return train_batch(pts, pv, gt, device)
+
+
+def run_train(device):
+    """Phase 5 and 6.  Returns (kernel records of phase 5, {kernel name:
+    launches in the counted step}, the warm-up step's loss)."""
+    import torch
+
+    batch = flagship_train_batch(device)
+    model = build_model(FLAGSHIP_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    rec = check_train_kernels(model, batch, device)
+    torch.cuda.empty_cache()
+
+    trainer = flagship_trainer(model)
+    warm = float(trainer.step(batch)[0])             # warm-up step
+    torch.cuda.synchronize()
+    rec["boxes_iou_bev_pairwise"] = check_pairwise(model, batch)
+    torch.cuda.empty_cache()
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update({"stream_rowpad_feats": TRAIN_BATCH, "rowpad_conv": 39,
+                 "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
+                 "rowpad_nbr": NBR_MAPS * TRAIN_BATCH})
+    print(f"[train] warm-up step loss {warm:.6f}")
+    return rec, timed_steps("train", model, trainer, batch, device,
+                            want), warm
 
 
 # the tiny training check's draws: points from RandomState(s), GT from
@@ -911,7 +1091,7 @@ def check_tiny_train(device):
         held (PERF.md section 7).
     Prints each draw's readings."""
     import torch
-    from detzero_tpu_torch.ops import iou_bev, rowpad_conv
+    from detzero_tpu_torch.ops import iou_bev, rowpad_conv, rowpad_nbr
 
     cpu = build_model(TINY_TRAIN_CFG, TINY_KW, torch.float32, "cpu")
     weights = {k: v.clone() for k, v in cpu.state_dict().items()}
@@ -929,10 +1109,10 @@ def check_tiny_train(device):
             loss.backward()
             torch.cuda.synchronize()
             n = (rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
-                 iou_bev.PAIRWISE_LAUNCHES)
-            if name != "cpu" and n != (39, 20, 2):
+                 iou_bev.PAIRWISE_LAUNCHES, rowpad_nbr.LAUNCHES)
+            if name != "cpu" and n != (39, 20, 2, NBR_MAPS * TRAIN_BATCH):
                 raise AssertionError(f"tiny train draw {seed} {name}: K4, "
-                                     f"K5, K6 launches {n}")
+                                     f"K5, K6, K8 launches {n}")
             runs[name] = (float(loss.detach()), {
                 k: p.grad for k, p in model.named_parameters()})
         ref = runs["cpu"][0]
@@ -976,7 +1156,7 @@ def run_two_stage_predict(device):
     print(f"[two-stage predict] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"rowpad_conv_fused": 20, "boxes_iou_bev": 1,
-                 "nms_walk": 1})
+                 "nms_walk": 1, "rowpad_nbr": NBR_MAPS})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     r = FLAGSHIP2_CFG["ROI_BUDGET"]
@@ -1068,59 +1248,24 @@ def run_two_stage_train(device):
     """Phase 8.  Returns (K7's record, {kernel name: launches in the
     counted step})."""
     import torch
-    from detzero_tpu_torch.core.optim import build_optimizer
-    from detzero_tpu_torch.parallel.trainer import Trainer
 
-    pts, pv = entry_points(batch=TRAIN_BATCH)
-    gt = make_gt(TRAIN_BATCH, FLAGSHIP_KW["max_objs"], 48, 60.0)
-    batch = train_batch(pts, pv, gt, device)
+    batch = flagship_train_batch(device)
     # the RoI subsample's draws, from a seeded generator on the card
     batch["generator"] = torch.Generator(device=device).manual_seed(5)
     model = build_model(FLAGSHIP2_CFG, FLAGSHIP_KW, torch.bfloat16, device)
-    timed = 3
-    trainer = Trainer(model, build_optimizer(FLAGSHIP_OPT, timed + 2, model))
+    trainer = flagship_trainer(model)
     trainer.step(batch)                              # warm-up step
     torch.cuda.synchronize()
     rec = check_overlap(model, batch, device)
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(device)
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"boxes_iou_bev": TRAIN_BATCH, "nms_walk": TRAIN_BATCH,
                  "rowpad_conv": 39, "rowpad_conv_dw": 20,
                  "boxes_iou_bev_pairwise": 2,
-                 "boxes_overlap_bev": TRAIN_BATCH})
-    times = []
-    for i in range(timed):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        reset_counts()
-        start.record()
-        loss, aux, gnorm = trainer.step(batch)       # a counted step
-        end.record()
-        torch.cuda.synchronize()
-        launches = read_counts()
-        times.append(start.elapsed_time(end))
-        if launches != want:
-            raise AssertionError(f"two-stage train step {i}: launch counts "
-                                 f"{launches}, expected {want}")
-        if not (torch.isfinite(loss) and torch.isfinite(gnorm)):
-            raise AssertionError(f"two-stage train step {i}: loss "
-                                 f"{float(loss)}, gnorm {float(gnorm)}")
-        print(f"[two-stage train] step {i}: {times[-1]:.2f} ms, loss "
-              f"{float(loss):.4f}, gnorm {float(gnorm):.4f}")
-    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    print(f"[two-stage train] launches in one step: {launches}")
-    print("[two-stage train] aux: " + ", ".join(
-        f"{k} {float(v.mean()):.4f}" for k, v in aux.items()))
-    ms = sum(times) / timed
-    print(f"[two-stage train] flagship batch {TRAIN_BATCH}, {timed} steps: "
-          f"{ms:.2f} ms/step ({', '.join(f'{t:.2f}' for t in times)}), "
-          f"{1000.0 * TRAIN_BATCH / ms:.3f} samples/s, peak memory "
-          f"{peak:.2f} GiB")
-    st = stage_times(lambda: trainer.step(batch), [model, trainer])
-    print("[two-stage train] stage ms: " + ", ".join(
-        f"{k} {t:.2f}" for k, t in st.items()))
-    return rec, launches
+                 "boxes_overlap_bev": TRAIN_BATCH,
+                 "rowpad_nbr": NBR_MAPS * TRAIN_BATCH})
+    return rec, timed_steps("two-stage train", model, trainer, batch,
+                            device, want)
 
 
 def roi_grad_shares(grads):
@@ -1218,8 +1363,9 @@ def check_tiny_two_stage(device):
         loss.backward()
         torch.cuda.synchronize()
         n = read_counts()
-        if dev != "cpu" and (n["boxes_overlap_bev"], n["rowpad_conv"]) \
-                != (TRAIN_BATCH, 39):
+        if dev != "cpu" and (n["boxes_overlap_bev"], n["rowpad_conv"],
+                             n["rowpad_nbr"]) \
+                != (TRAIN_BATCH, 39, NBR_MAPS * TRAIN_BATCH):
             raise AssertionError(f"tiny two-stage loss launches {n}")
         grads[name] = {k: q.grad.cpu() for k, q in model.named_parameters()
                        if k.startswith("roi_head.")}
@@ -1261,6 +1407,100 @@ def check_tiny_two_stage(device):
     if not alone[top] <= 1e-3:
         raise AssertionError(f"tiny two-stage RoI head gradient {top}: "
                              f"{alone[top]} of its elements beyond the bound")
+
+
+def check_sliding(model, batch, device):
+    """Phase 10: K9 against K4 and against its plain version (K4's in
+    'subm') on the card, at the 'subm' shapes of the flagship training step
+    (batch 2 stacked along the BEV-row axis): the stem (cin = the point
+    features), and one conv of each level.  K9 sums each site's terms in
+    K4's order, so its difference from K4 is printed (0 expected); it is
+    held to the plain version at K4's 2e-2 * max|ref| on bf16 weights.
+    Returns K9's record."""
+    import torch
+    from detzero_tpu_torch.ops import rowpad_conv
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    with torch.no_grad():
+        rp_feats, plan = model.prepare(batch["points"],
+                                       batch["points_valid"])
+    nz0 = plan[0]["rp_zmask"].shape[1]
+    shapes = [("stem L0", rp_feats, 0, rp_feats.shape[1] // nz0, 16)]
+    for lv, c in enumerate((16, 32, 64, 128)):
+        shapes.append((f"L{lv}", masked_table(plan[lv]["rp_zmask"], c, gen),
+                       lv, c, c))
+    cases = []
+    for name, table, lv, cin, cout in shapes:
+        zm = plan[lv]["rp_zmask"]
+        w = (torch.randn((27, cin, cout), generator=gen, device=device)
+             * (27 * cin) ** -0.5).bfloat16()
+        kw = dict(nz=zm.shape[1], cin=cin, cout=cout)
+        a = (table, plan[lv]["rp_nbr"], w, zm)
+        got = rowpad_conv.rowpad_conv_sliding(*a, **kw)
+        k4 = rowpad_conv.rowpad_conv(*a, **kw)
+        ref = rowpad_conv.rowpad_conv_plain(*a, **kw)
+        torch.cuda.synchronize()
+        err, d4 = max_abs(got, ref), max_abs(got, k4)
+        tol = 2e-2 * max(float(ref.abs().max()), 1e-3)
+        del ref, k4
+        ms = time_ms(lambda: rowpad_conv.rowpad_conv_sliding(*a, **kw))
+        k4_ms = time_ms(lambda: rowpad_conv.rowpad_conv(*a, **kw))
+        pms = time_ms(lambda: rowpad_conv.rowpad_conv_plain(*a, **kw),
+                      iters=2, warmup=1)
+        work = conv_work(table, a[1], zm, zm, kw["nz"], cin, cout, "subm", 1,
+                         nbytes(got))
+        rc = with_bound(dict(case=f"{name} {cin}->{cout}", max_abs_err=err,
+                             tol=tol, k4_diff=d4, ms=ms, k4_ms=k4_ms,
+                             plain_ms=pms), *work, "bf16")
+        cases.append(rc)
+        torch.cuda.empty_cache()
+        print(f"[sliding] rowpad_conv_sliding {rc['case']} in "
+              f"{tuple(table.shape)}: max_abs_err {err:.3g} (tol {tol:.3g}), "
+              f"max abs diff from K4 {d4:.3g}, {ms:.3f} ms vs K4 {k4_ms:.3f} "
+              f"ms vs plain {pms:.3f} ms, bound {rc['bound_ms']:.4f} ms "
+              f"({rc['bound_by']})")
+        if not err <= tol:
+            raise AssertionError(f"rowpad_conv_sliding {name} disagrees")
+    rec = sum_cases(cases)
+    rec["k4_diff"] = max(c["k4_diff"] for c in cases)
+    return rec
+
+
+def run_sliding_train(device, warm_ref):
+    """Phases 10 and 11: K9's checks, then phase 6's flagship step with
+    `rowpad_conv.USE_SLIDING` on fresh weights from the same seed, the flag
+    restored after it; its warm-up loss within 1e-3 relative of phase 6's
+    `warm_ref`.  Returns (K9's record, {kernel name: launches in the counted
+    step})."""
+    import torch
+    from detzero_tpu_torch.ops import rowpad_conv
+
+    batch = flagship_train_batch(device)
+    model = build_model(FLAGSHIP_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    rec = check_sliding(model, batch, device)
+    torch.cuda.empty_cache()
+    was = rowpad_conv.USE_SLIDING
+    rowpad_conv.USE_SLIDING = True
+    try:
+        trainer = flagship_trainer(model)
+        warm = float(trainer.step(batch)[0])         # warm-up step
+        rel = abs(warm - warm_ref) / abs(warm_ref)
+        print(f"[sliding train] warm-up step loss {warm:.6f}, phase 6's "
+              f"{warm_ref:.6f}: relative difference {rel:.3g} (bound 1e-3)")
+        if not rel <= 1e-3:
+            raise AssertionError("sliding train: warm-up loss differs from "
+                                 "phase 6's")
+        torch.cuda.empty_cache()
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update({"stream_rowpad_feats": TRAIN_BATCH,
+                     "rowpad_conv_sliding": 17, "rowpad_conv": 22,
+                     "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
+                     "rowpad_nbr": NBR_MAPS * TRAIN_BATCH})
+        launches = timed_steps("sliding train", model, trainer, batch,
+                               device, want)
+    finally:
+        rowpad_conv.USE_SLIDING = was
+    return rec, launches
 
 
 def main():
@@ -1312,7 +1552,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. and 6. training kernels, the flagship train step, the tiny check
-    train_rec, by_path["train_step"] = run_train(device)
+    train_rec, by_path["train_step"], warm = run_train(device)
     rec.update(train_rec)
     torch.cuda.empty_cache()
     check_tiny_train(device)
@@ -1326,8 +1566,14 @@ def main():
         run_two_stage_train(device)
     torch.cuda.empty_cache()
     check_tiny_two_stage(device)
+    torch.cuda.empty_cache()
 
-    # 10. result lines
+    # 10. and 11. the sliding conv K9 at the step's shapes, then phase 6's
+    # step with it
+    rec["rowpad_conv_sliding"], by_path["sliding_train_step"] = \
+        run_sliding_train(device, warm)
+
+    # result lines
     kernels = []
     for name, (src, replaces) in KERNELS.items():
         r = rec[name]
@@ -1339,7 +1585,8 @@ def main():
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"],
                         "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": None})
+                        "bound_by": r["bound_by"],
+                        "library_ms": r.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -46,6 +46,11 @@ SIGNATURES = {
     # ny_in, nz, cin, b_in, ny_out, out_nz, cout, b_out, down, z_stride,
     # rows_per_chunk, stream
     "dz_rowpad_conv_dw": [_P] * 6 + [_I] * 11 + [_P],
+    # table, nbr, w, zmask, out, ny, nz, cin, b_in, cout, b_out,
+    # rows_per_strip, stream
+    "dz_rowpad_conv_sliding": [_P] * 5 + [_I] * 7 + [_P],
+    # xq, x_in, out, ny_out, b_out, ny_in, b_in, mode, stream
+    "dz_rowpad_nbr": [_P] * 3 + [_I] * 5 + [_P],
     # boxes_a, boxes_b, out, n, m, iou, stream
     "dz_iou_bev": [_P] * 3 + [_I] * 3 + [_P],
     # boxes_a, boxes_b, out, n, iou, stream

@@ -1,0 +1,187 @@
+// K9 (dz_rowpad_conv_sliding): the 'subm' 3x3x3 conv with z stride 1 that
+// streams each input row once; replaces
+// detzero_tpu/ops/pallas_pillar.py::rowpad_conv_sliding
+// (_conv_kernel_sliding).  It computes what K4 (csrc/rowpad_conv.cu)
+// computes in 'subm', on the same tensor contract:
+//   table (ny, nz*cin, b_in)  bf16, pillars in the last dim
+//   nbr   (ny, 16, b_out)     i32, rows 0..8 = rank of tap j's neighbour in
+//         source row y + j/3 - 1; >= b_in (or < 0) means absent
+//   w     (27, cin, cout)     bf16, spconv order k = t*9 + j
+//   zmask (ny, nz, b_out)     u8 or null (every site)
+//   out   (ny, nz*cout, b_out) bf16; zeros at the sites zmask marks empty
+//
+// The TPU kernel walks the rows in order and keeps the last two input rows
+// in a VMEM ring, so each row is read from HBM once instead of three times.
+// A row of a flagship table is nz*cin*b_in*2 = 160 KB, so three of them do
+// not fit in the 227 KB of shared memory a block may have.  The GPU form
+// turns the ring around: a block walks a strip of consecutive rows and holds
+// ONE input row k (a slab of it: the planes its tile of output z reads) in
+// shared memory, while each thread keeps a ring of three accumulators in
+// registers, for outputs k+1, k and k-1.  Input row k gives output k+1 its
+// taps j = 0..2 (dy = -1), output k its taps 3..5 and output k-1 its taps
+// 6..8, after which output k-1 is complete and stored.  So every output site
+// sums its terms in K4's order (tap j, then z tap t, then ci), one fmaf at a
+// time, and K9 equals K4 bit for bit.  Each input row comes from device
+// memory once per strip, plus the two halo rows at the strip's ends; a
+// slab of (z tile + 2) planes fits at every flagship level (at L3, cin 128
+// and nz 5: 5 planes, 160 KB).  Rows outside the table are loaded clamped,
+// as K4 clamps its source row; valid maps mark their taps absent anyway.
+// Absent taps are skipped, never multiplied by a found mask, so stale
+// shared memory cannot put a NaN into a sum.  The batch's samples are
+// stacked along the rows: a strip that crosses from one sample into the
+// next reads the next sample's row only through taps the maps mark absent.
+//
+// Bound on the H100: like K4, the table read and the output written once
+// (about one voxel in fifty is occupied on the flagship scene, so the
+// arithmetic is small).  This first version keeps K4's per-thread CUDA-core
+// arithmetic and loads the slab with a synchronous block-wide copy between
+// two barriers; no tensor cores, no copy overlapped with compute.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kNbrRows = 16;
+constexpr int kCoT = 16;           // output channels per thread, as K4
+constexpr int kMaxLanes = 128;     // block x: pillar lanes
+constexpr int kMaxThreads = 512;
+constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
+
+using bf16 = __nv_bfloat16;
+
+// output row o's terms of taps j0..j0+2 from the slab of their source row:
+// K4's loop for those taps
+__device__ __forceinline__ void accumulate(
+    float (&acc)[kCoT], const bf16* slab, const int* __restrict__ nbr,
+    const bf16* __restrict__ w, int o, int j0, int r, int z, int zlo,
+    int nz, int cin, int cout, int co0, int b_in, int b_out) {
+  for (int j = j0; j < j0 + 3; ++j) {
+    const int rank = nbr[((size_t)o * kNbrRows + j) * b_out + r];
+    if (rank < 0 || rank >= b_in) continue;
+    for (int t = 0; t < 3; ++t) {
+      const int zi = z + t - 1;
+      if (zi < 0 || zi >= nz) continue;
+      const bf16* xp = slab + (size_t)(zi - zlo) * cin * b_in + rank;
+      const bf16* wp = w + (size_t)(t * 9 + j) * cin * cout + co0;
+      for (int ci = 0; ci < cin; ++ci) {
+        const float xv = __bfloat162float(xp[(size_t)ci * b_in]);
+        const bf16* wr = wp + (size_t)ci * cout;
+#pragma unroll
+        for (int c = 0; c < kCoT; ++c)
+          acc[c] = fmaf(xv, __bfloat162float(wr[c]), acc[c]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    rowpad_conv_sliding_kernel(const bf16* __restrict__ table,
+                               const int* __restrict__ nbr,
+                               const bf16* __restrict__ w,
+                               const uint8_t* __restrict__ zmask,
+                               bf16* __restrict__ out, int ny, int nz,
+                               int cin, int b_in, int cout, int b_out,
+                               int rows_per_strip, int z_tile, int z_tiles) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* slab = reinterpret_cast<bf16*>(smem_raw);
+  const int y0 = blockIdx.x * rows_per_strip;
+  const int y_end = min(y0 + rows_per_strip, ny);
+  const int z0 = (blockIdx.y % z_tiles) * z_tile;
+  const int r = (blockIdx.y / z_tiles) * blockDim.x + threadIdx.x;
+  const int z = z0 + threadIdx.y;
+  const int co0 = blockIdx.z * kCoT;
+  // the input planes this z tile reads
+  const int zlo = max(z0 - 1, 0);
+  const int n_el = (min(z0 + z_tile, nz - 1) - zlo + 1) * cin * b_in;
+  const bool active = r < b_out && z < nz;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int n_threads = blockDim.x * blockDim.y;
+
+  float acc_m[kCoT], acc_0[kCoT], acc_p[kCoT];  // outputs k+1, k, k-1
+#pragma unroll
+  for (int c = 0; c < kCoT; ++c) acc_m[c] = acc_0[c] = acc_p[c] = 0.f;
+
+  for (int k = y0 - 1; k <= y_end; ++k) {
+    const int kc = min(max(k, 0), ny - 1);
+    const bf16* src = table + ((size_t)kc * nz + zlo) * cin * b_in;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && n_el % 8 == 0) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(src);
+      uint4* d4 = reinterpret_cast<uint4*>(slab);
+      for (int e = tid; e < n_el / 8; e += n_threads) d4[e] = s4[e];
+    } else {
+      const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+      unsigned short* d = reinterpret_cast<unsigned short*>(slab);
+      for (int e = tid; e < n_el; e += n_threads) d[e] = s[e];
+    }
+    __syncthreads();
+    if (active) {
+      auto on = [&](int o) {
+        return zmask == nullptr ||
+               zmask[((size_t)o * nz + z) * b_out + r] != 0;
+      };
+      if (k + 1 >= y0 && k + 1 < y_end && on(k + 1))
+        accumulate(acc_m, slab, nbr, w, k + 1, 0, r, z, zlo, nz, cin, cout,
+                   co0, b_in, b_out);
+      if (k >= y0 && k < y_end && on(k))
+        accumulate(acc_0, slab, nbr, w, k, 3, r, z, zlo, nz, cin, cout, co0,
+                   b_in, b_out);
+      if (k - 1 >= y0 && k - 1 < y_end) {
+        if (on(k - 1))
+          accumulate(acc_p, slab, nbr, w, k - 1, 6, r, z, zlo, nz, cin, cout,
+                     co0, b_in, b_out);
+        // output k-1 is complete (0 at an empty site)
+#pragma unroll
+        for (int c = 0; c < kCoT; ++c)
+          out[(((size_t)(k - 1) * nz + z) * cout + co0 + c) * b_out + r] =
+              __float2bfloat16_rn(acc_p[c]);
+      }
+    }
+    __syncthreads();  // the slab is overwritten next
+#pragma unroll
+    for (int c = 0; c < kCoT; ++c) {
+      acc_p[c] = acc_0[c];
+      acc_0[c] = acc_m[c];
+      acc_m[c] = 0.f;
+    }
+  }
+}
+
+}  // namespace
+
+// rows_per_strip: consecutive output rows one block walks
+DZ_EXPORT int dz_rowpad_conv_sliding(const void* table, const void* nbr,
+                                     const void* w, const void* zmask,
+                                     void* out, int ny, int nz, int cin,
+                                     int b_in, int cout, int b_out,
+                                     int rows_per_strip, void* stream) {
+  if (cout % kCoT != 0 || rows_per_strip < 1 || cin < 1 || b_in < 1)
+    return (int)cudaErrorInvalidValue;
+  if (ny == 0 || nz == 0 || b_out == 0) return dz_launch_status();
+  const int lanes = min((b_out + 31) / 32 * 32, kMaxLanes);
+  const int lane_tiles = (b_out + lanes - 1) / lanes;
+  // the largest z tile whose slab (its planes and the two halo planes)
+  // fits in shared memory
+  int z_tile = min(kMaxThreads / lanes, nz);
+  size_t smem = 0;
+  for (;; z_tile /= 2) {
+    smem = (size_t)min(z_tile + 2, nz) * cin * b_in * sizeof(bf16);
+    if (smem <= kMaxSmem || z_tile == 1) break;
+  }
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rowpad_conv_sliding_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int z_tiles = (nz + z_tile - 1) / z_tile;
+  const int strips = (ny + rows_per_strip - 1) / rows_per_strip;
+  if (z_tiles * lane_tiles > 65535 || cout / kCoT > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(strips, z_tiles * lane_tiles, cout / kCoT);
+  dim3 block(lanes, z_tile);
+  rowpad_conv_sliding_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const bf16*)table, (const int*)nbr, (const bf16*)w,
+      (const uint8_t*)zmask, (bf16*)out, ny, nz, cin, b_in, cout, b_out,
+      rows_per_strip, z_tile, z_tiles);
+  return dz_launch_status();
+}

@@ -3,8 +3,9 @@ reference's backbone3d_pallas.py).
 
 Eval mode: all 20 3x3x3 convs run through kernel K2 (`ops/rowpad_conv.py`),
 which applies the folded BN, the residual, the ReLU and the zmask in its
-epilogue.  Train mode: each conv is `RowpadConv` (kernel K4 forward, K4 and
-K5 backward) followed by the masked batch-statistics BN, the ReLU, the
+epilogue.  Train mode: each conv is `RowpadConv` (kernel K4 forward, or K9
+for the 17 'subm' convs under `rowpad_conv.USE_SLIDING`; K4 and K5
+backward) followed by the masked batch-statistics BN, the ReLU, the
 zmask and the residual as torch ops (`backbone3d_pallas.py:162-177`).  The
 final (3,1,1) z-conv and the BEV densify run on the compact table.  With
 `with_multi_scale` (the PDV second stage) the backbone also returns the
@@ -32,6 +33,7 @@ from detzero_tpu_torch.models.detection.backbone3d_pillar import plan_grids
 from detzero_tpu_torch.models.layers import AutoNames, MaskedBatchNorm
 from detzero_tpu_torch.ops import pillars
 from detzero_tpu_torch.ops.rowpad_conv import RowpadConv, rowpad_conv_fused
+from detzero_tpu_torch.ops.rowpad_nbr import rowpad_nbr
 
 
 def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
@@ -39,7 +41,8 @@ def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
     rp_slot, rp_keep, rp_gidx, rp_gvalid, rp_zmask (ny, nz, B), rp_nbr
     (ny, 16, B); for levels 0..2 also rp_down_nbr (at the output grid) and
     rp_up_nbr (this grid; the strided conv's transpose, which the training
-    slice consumes).  Returns new level dicts."""
+    slice consumes).  The 10 neighbour maps come from kernel K8
+    (`ops/rowpad_nbr.py`) on the card.  Returns new level dicts."""
     grids = plan_grids(grid_zyx)
     out = [dict(e) for e in plan]
     xq = []
@@ -54,12 +57,11 @@ def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
             e["zmask"].to(torch.int8), lay["gidx"], lay["gvalid"]) > 0
         xq.append(pillars.rowpad_xcoords(e["coords2d"][:, 1], lay["gidx"],
                                          lay["gvalid"]))
-        e["rp_nbr"] = pillars.rowpad_nbr_rank(xq[lvl], xq[lvl], mode="subm")
+        e["rp_nbr"] = rowpad_nbr(xq[lvl], xq[lvl], mode="subm")
     for lvl in range(3):
-        out[lvl]["rp_down_nbr"] = pillars.rowpad_nbr_rank(
-            xq[lvl + 1], xq[lvl], mode="down")
-        out[lvl]["rp_up_nbr"] = pillars.rowpad_nbr_rank(
-            xq[lvl], xq[lvl + 1], mode="up")
+        out[lvl]["rp_down_nbr"] = rowpad_nbr(xq[lvl + 1], xq[lvl],
+                                             mode="down")
+        out[lvl]["rp_up_nbr"] = rowpad_nbr(xq[lvl], xq[lvl + 1], mode="up")
     return out
 
 

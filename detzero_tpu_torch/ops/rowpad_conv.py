@@ -9,9 +9,14 @@
     both through one `_conv_kernel`;
   * kernel K5, the conv's weight gradient (`rowpad_conv_dw`, replaces
     `pallas_pillar.rowpad_conv_dw`, `csrc/rowpad_conv_dw.cu`);
+  * kernel K9, K4's 'subm' conv with z stride 1 streaming each input row
+    once (`rowpad_conv_sliding`, replaces `pallas_pillar.rowpad_conv_sliding`,
+    `csrc/rowpad_conv_sliding.cu`); bf16 only, equal to K4 bit for bit;
   * `RowpadConv`, the training conv with the scatter-free backward of
     `pallas_pillar.make_conv_op`: the input gradient is K4 with the flipped
-    weight ('up' mode for a strided conv), the weight gradient is K5.
+    weight ('up' mode for a strided conv), the weight gradient is K5.  With
+    `USE_SLIDING` (`DETZERO_SLIDING_CONV=1`, as `pallas_pillar.USE_SLIDING`)
+    its forward 'subm' conv with z stride 1 is K9 instead of K4.
 
 On the flagship scene about one voxel in fifty is occupied, so what bounds
 the conv kernels on the H100 is writing the output table, not the
@@ -38,11 +43,13 @@ trains its convs in float32 (and serves them in bf16, through K2).  That
 departs from the TPU kernel and exists only so that a float32 model on the
 card can be held to the CPU reference gradient: at random init bf16
 rounding alone moves this model's gradient too far for any leaf-by-leaf
-comparison.  `LAUNCHES` counts K2's launches, `CONV_LAUNCHES` K4's and
-`DW_LAUNCHES` K5's.
+comparison.  `LAUNCHES` counts K2's launches, `CONV_LAUNCHES` K4's,
+`DW_LAUNCHES` K5's and `SLIDING_LAUNCHES` K9's.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +60,15 @@ from detzero_tpu_torch.ops.pillars import NBR_ROWS, zconv_matmul
 LAUNCHES = 0
 CONV_LAUNCHES = 0
 DW_LAUNCHES = 0
+SLIDING_LAUNCHES = 0
 _MODES = {"subm": 0, "down": 1, "up": 2}
 # output rows per K5 block: enough blocks for the card at every level
 DW_ROWS_PER_CHUNK = 16
+# consecutive output rows one K9 block walks (two halo rows per strip)
+SLIDING_ROWS_PER_STRIP = 16
+# RowpadConv's forward 'subm' conv with z stride 1 runs K9 instead of K4;
+# read at call time
+USE_SLIDING = os.environ.get("DETZERO_SLIDING_CONV", "0") == "1"
 
 
 def _out_nz(nz, z_stride, out_nz):
@@ -190,6 +203,51 @@ def _check_train_args(name, table, nbr, nz, cin, mode, z_stride):
         raise ValueError(f"{name}: table {tuple(table.shape)}, nbr "
                          f"{tuple(nbr.shape)} do not fit nz={nz}, cin={cin}, "
                          f"mode={mode!r}")
+
+
+def rowpad_conv_sliding(table, nbr, weight, zmask=None, *, nz, cin, cout):
+    """Kernel K9 on CUDA tensors: K4's 'subm' conv with z stride 1, bf16
+    tables only, returning bf16; on CPU tensors K4's plain version in
+    'subm' (f32 out).  Contract of `rowpad_conv_plain`."""
+    if table.device.type == "cpu":
+        return rowpad_conv_plain(table, nbr, weight, zmask, nz=nz, cin=cin,
+                                 cout=cout, mode="subm")
+    _check_train_args("rowpad_conv_sliding", table, nbr, nz, cin, "subm", 1)
+    ny, _, b_in = table.shape
+    b_out = nbr.shape[2]
+    if nbr.shape[0] != ny or weight.shape != (27, cin, cout):
+        raise ValueError(f"rowpad_conv_sliding: table {tuple(table.shape)}, "
+                         f"nbr {tuple(nbr.shape)}, weight "
+                         f"{tuple(weight.shape)} for cin={cin}, cout={cout}")
+    if table.dtype != torch.bfloat16:
+        raise ValueError(f"rowpad_conv_sliding: the kernel reads bf16 tables "
+                         f"only, got {table.dtype}")
+    if cout % 16:
+        raise ValueError(f"rowpad_conv_sliding: the kernel takes cout in "
+                         f"multiples of 16, got {cout}")
+    table = table.contiguous()
+    nbr = nbr.to(torch.int32).contiguous()
+    w = weight.to(torch.bfloat16).contiguous()
+    tensors = [table, nbr, w]
+    zm = None
+    if zmask is not None:
+        zm = zmask[:, :nz].to(torch.uint8).contiguous()
+        if zm.shape != (ny, nz, b_out):
+            raise ValueError(f"rowpad_conv_sliding: zmask "
+                             f"{tuple(zmask.shape)}")
+        tensors.append(zm)
+    _build.require_cuda("rowpad_conv_sliding", *tensors)
+    out = torch.empty((ny, nz * cout, b_out), dtype=torch.bfloat16,
+                      device=table.device)
+    rc = _build.lib().dz_rowpad_conv_sliding(
+        table.data_ptr(), nbr.data_ptr(), w.data_ptr(),
+        zm.data_ptr() if zm is not None else None, out.data_ptr(), ny, nz,
+        cin, b_in, cout, b_out, SLIDING_ROWS_PER_STRIP,
+        _build.stream_ptr(table.device))
+    global SLIDING_LAUNCHES
+    SLIDING_LAUNCHES += 1
+    _build.check(rc, "dz_rowpad_conv_sliding")
+    return out
 
 
 def rowpad_conv_plain(table, nbr, weight, zmask=None, *, nz, cin, cout,
@@ -340,6 +398,8 @@ class RowpadConv(torch.autograd.Function):
     """conv(table, weight) with the reference's scatter-free VJP
     (`pallas_pillar.make_conv_op`):
 
+        out     = K4(table, nbr, W), or K9 under USE_SLIDING ('subm', z
+                  stride 1), as make_conv_op chooses at trace time
         d_table = K4(ct, nbr | nbr_up, flip_weight(W))  ('subm' | 'up')
         dW      = K5(table, nbr, ct)
 
@@ -353,9 +413,13 @@ class RowpadConv(torch.autograd.Function):
     def forward(ctx, table, weight, nbr, nbr_up, zmask_out, zmask_in, nz,
                 cin, cout, z_stride, out_nz, mode):
         onz = _out_nz(nz, z_stride, out_nz)
-        out = rowpad_conv(table, nbr, weight, zmask_out, nz=nz, cin=cin,
-                          cout=cout, z_stride=z_stride, out_nz=onz,
-                          mode=mode)
+        if USE_SLIDING and mode == "subm" and z_stride == 1:
+            out = rowpad_conv_sliding(table, nbr, weight, zmask_out, nz=nz,
+                                      cin=cin, cout=cout)
+        else:
+            out = rowpad_conv(table, nbr, weight, zmask_out, nz=nz, cin=cin,
+                              cout=cout, z_stride=z_stride, out_nz=onz,
+                              mode=mode)
         ctx.save_for_backward(table, weight, nbr, nbr_up, zmask_out,
                               zmask_in)
         ctx.meta = (nz, cin, cout, z_stride, onz, mode)

@@ -1,7 +1,7 @@
 """Each CUDA kernel of detzero_tpu_torch against its plain PyTorch version on
 the card, at small shapes, plus the tiny model (predict and one training
-loss with its gradients, one-stage and two-stage) on the card against the
-CPU.
+loss with its gradients, one-stage and two-stage, and one loss with the
+sliding conv K9) on the card against the CPU.
 Marked `cuda`: skipped where torch finds no CUDA device.  On a machine with
 a card:  python -m pytest tests/test_torch_cuda.py -q
 chip_smoke.py makes the same checks at the flagship path's shapes."""
@@ -201,6 +201,68 @@ def test_overlap_matrix_kernel(dev, n, m):
     assert (got - ref).abs().max() <= 1e-5 * float(ref.max())
 
 
+@pytest.mark.parametrize("row_budget", [8, 128])
+def test_rowpad_nbr_kernel(tiny, dev, row_budget):
+    """K8 against its plain version on the card, all 10 maps of the tiny
+    plan: equal on every element.  Row budget 8 drops the pillars past the
+    8th of a row."""
+    from detzero_tpu_torch.models.detection.backbone3d_pillar import (
+        build_pillar_plan, plan_grids)
+    from detzero_tpu_torch.ops import pillars, rowpad_nbr
+
+    _, gpu, *_, table, _ = tiny
+    plan = build_pillar_plan(table, gpu.grid_zyx, gpu.pillar_capacities)
+    xq = []
+    for lvl, (_, ny, nx) in enumerate(plan_grids(gpu.grid_zyx)[:4]):
+        lay = pillars.rowpad_layout(plan[lvl]["cells"], plan[lvl]["mask"],
+                                    (ny, nx), row_budget)
+        xq.append(pillars.rowpad_xcoords(plan[lvl]["coords2d"][:, 1],
+                                         lay["gidx"], lay["gvalid"]))
+    cases = [(xq[lvl], xq[lvl], "subm") for lvl in range(4)]
+    for lvl in range(3):
+        cases += [(xq[lvl + 1], xq[lvl], "down"),
+                  (xq[lvl], xq[lvl + 1], "up")]
+    n0 = rowpad_nbr.LAUNCHES
+    for q, x_in, mode in cases:
+        ref = pillars.rowpad_nbr_rank(q, x_in, mode)
+        got = rowpad_nbr.rowpad_nbr(q, x_in, mode)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, ref), mode
+        assert int((ref[:, :9] < row_budget).sum()) > 0
+    assert rowpad_nbr.LAUNCHES == n0 + 10
+
+
+@pytest.mark.parametrize("cin,cout", [(5, 16), (128, 32)])
+def test_rowpad_conv_sliding_kernel(tiny, dev, cin, cout):
+    """K9 against K4 on the same bf16 inputs, equal bit for bit (K9 sums
+    every site's terms in K4's order), and against the plain version within
+    2e-2 * max|ref|, K4's bound; cin 128 fills K9's shared memory as at the
+    flagship's L3."""
+    from detzero_tpu_torch.ops import rowpad_conv
+
+    *_, plan = tiny
+    g = torch.Generator(device=dev).manual_seed(7)
+    zm = plan[0]["rp_zmask"]
+    table = _masked_table(zm, cin, g)
+    w = (torch.randn((27, cin, cout), generator=g, device=dev)
+         * (27 * cin) ** -0.5).bfloat16()
+    kw = dict(nz=zm.shape[1], cin=cin, cout=cout)
+    a = (table, plan[0]["rp_nbr"], w, zm)
+    n0 = rowpad_conv.SLIDING_LAUNCHES
+    got = rowpad_conv.rowpad_conv_sliding(*a, **kw)
+    k4 = rowpad_conv.rowpad_conv(*a, **kw)
+    ref = rowpad_conv.rowpad_conv_plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert rowpad_conv.SLIDING_LAUNCHES == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    assert float(ref.abs().max()) > 0
+    assert torch.equal(got, k4)
+    assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+    with pytest.raises(ValueError, match="bf16"):
+        rowpad_conv.rowpad_conv_sliding(table.float(), *a[1:], **kw)
+    assert rowpad_conv.SLIDING_LAUNCHES == n0 + 1
+
+
 def test_iou_and_walk_kernels(dev):
     from detzero_tpu_torch.ops import iou_bev, nms
 
@@ -308,6 +370,52 @@ def test_tiny_train_loss_card_vs_cpu(dev, seed):
             assert abs(norm_ratio - 1.0) <= 1e-2
         else:
             assert abs(norm_ratio - 1.0) <= 0.25
+
+
+def test_tiny_sliding_train_loss(dev, monkeypatch):
+    """One bf16 training loss and its gradient at batch 2 on the tiny
+    geometry with `rowpad_conv.USE_SLIDING`: its 17 'subm' forward convs
+    launch K9 and the other 22 convs K4; the loss and gradient norm are
+    finite, and the loss is within 1e-3 relative of the same model's loss
+    through K4 alone (K9 equals K4 bit for bit)."""
+    from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
+    from detzero_tpu_torch.ops import rowpad_conv, rowpad_nbr
+
+    cfg = {"CLASS_IDS_EACH_HEAD": [[0], [1, 2]],
+           "VOXEL_CAPACITIES": (2048, 1024, 512, 256)}
+    m = CenterPoint(cfg, 3, pc_range=(-6.4, -6.4, -2.0, 6.4, 6.4, 2.0),
+                    voxel_size=(0.2, 0.2, 0.5), max_objs=8,
+                    dtype=torch.bfloat16, device="cpu")
+    m.init_parameters(torch.Generator().manual_seed(0))
+    m = m.to(dev)
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-6, 6, (2, 2048, 5)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.8, 1.8, (2, 2048))
+    gb = np.zeros((2, 8, 9), np.float32)
+    gb[:, 0, :7] = [1.0, 1.0, 0.0, 4.4, 2.0, 1.6, 0.3]
+    gv = np.zeros((2, 8), bool)
+    gv[:, 0] = True
+    batch = [torch.from_numpy(a).to(dev) for a in
+             (pts, np.ones((2, 2048), bool), gb, np.zeros((2, 8), np.int32),
+              gv)]
+    losses = []
+    for sliding in (False, True):
+        monkeypatch.setattr(rowpad_conv, "USE_SLIDING", sliding)
+        m.zero_grad(set_to_none=True)
+        n0 = (rowpad_conv.SLIDING_LAUNCHES, rowpad_conv.CONV_LAUNCHES,
+              rowpad_conv.DW_LAUNCHES, rowpad_nbr.LAUNCHES)
+        loss, _ = m.loss(*batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        n = (rowpad_conv.SLIDING_LAUNCHES, rowpad_conv.CONV_LAUNCHES,
+             rowpad_conv.DW_LAUNCHES, rowpad_nbr.LAUNCHES)
+        assert tuple(a - b for a, b in zip(n, n0)) == (
+            (17, 22, 20, 20) if sliding else (0, 39, 20, 20))
+        gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum()
+                               for p in m.parameters() if p.grad is not None))
+        assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
+        losses.append(float(loss.detach()))
+    assert abs(losses[1] - losses[0]) <= 1e-3 * abs(losses[0])
 
 
 TWO_STAGE = {"SECOND_STAGE": True, "ROI_BUDGET": 16, "ROI_GRID_SIZE": 3,

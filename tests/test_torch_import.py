@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from detzero_tpu_torch.ops import iou_bev, nms, rowpad_conv, stream_vfe
+from detzero_tpu_torch.ops import (iou_bev, nms, rowpad_conv, rowpad_nbr,
+                                   stream_vfe)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -22,6 +23,7 @@ MAIN_PATH = [
     "detzero_tpu_torch.ops.pillars", "detzero_tpu_torch.ops.box_ops",
     "detzero_tpu_torch.ops.box_coder", "detzero_tpu_torch.ops.iou_bev",
     "detzero_tpu_torch.ops.nms", "detzero_tpu_torch.ops.rowpad_conv",
+    "detzero_tpu_torch.ops.rowpad_nbr",
     "detzero_tpu_torch.ops.stream_vfe", "detzero_tpu_torch.models.layers",
     "detzero_tpu_torch.models.detection.backbone2d",
     "detzero_tpu_torch.models.detection.backbone3d_pillar",
@@ -43,7 +45,8 @@ torch.set_num_threads(1)
 for name in {mods!r}:
     importlib.import_module(name)
 from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
-from detzero_tpu_torch.ops import iou_bev, nms, rowpad_conv, stream_vfe
+from detzero_tpu_torch.ops import (iou_bev, nms, rowpad_conv, rowpad_nbr,
+                                   stream_vfe)
 cfg = {{"CLASS_IDS_EACH_HEAD": [[0], [1, 2]],
         "VOXEL_CAPACITIES": (256, 128, 64, 32), "BEV_LAYER_NUMS": (1, 1)}}
 m = CenterPoint(cfg, 3, pc_range=(-3.2, -3.2, -2.0, 3.2, 3.2, 2.0),
@@ -90,7 +93,8 @@ print(json.dumps({{"bad": bad, "kept": int(out["mask"].sum()),
     "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
                  rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
                  iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
-                 iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES]}}))
+                 iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES,
+                 rowpad_nbr.LAUNCHES, rowpad_conv.SLIDING_LAUNCHES]}}))
 """
 
 
@@ -106,7 +110,7 @@ def test_port_imports_no_jax_and_cpu_takes_plain_versions():
     assert res["kept"] > 0
     assert res["finite"]
     assert res["two_stage"] == [[1, 8, 7], 8, True, True]
-    assert res["launches"] == [0] * 8
+    assert res["launches"] == [0] * 10
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
@@ -144,6 +148,13 @@ def test_wrappers_raise_off_cpu_and_cuda():
                                    torch.empty(4, 2 * 16, 8, **meta), nz=2,
                                    cin=3, cout=16)
     with pytest.raises(ValueError, match="CUDA"):
+        rowpad_conv.rowpad_conv_sliding(
+            torch.empty(4, 2 * 3, 8, dtype=torch.bfloat16, **meta), nbr,
+            torch.empty(27, 3, 16, **meta), nz=2, cin=3, cout=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        rowpad_nbr.rowpad_nbr(torch.empty(4, 8, dtype=torch.int32, **meta),
+                              torch.empty(4, 8, dtype=torch.int32, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
         iou_bev.boxes_iou_bev_pairwise(torch.empty(4, 5, **meta),
                                        torch.empty(4, 5, **meta))
     with pytest.raises(ValueError, match="CUDA"):
@@ -152,7 +163,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
     assert [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
             rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
             iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
-            iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES] == [0] * 8
+            iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES, rowpad_nbr.LAUNCHES,
+            rowpad_conv.SLIDING_LAUNCHES] == [0] * 10
 
 
 def test_model_needs_a_device_without_cuda(monkeypatch):
