@@ -8,14 +8,25 @@ training step (batch 2) of the two-stage flagship of chip_smoke.py
 (FLAGSHIP2_CFG, the same input, weights and optimizer), each after warm-up.
 For each it prints the wall time, the host's enqueue time, the device's
 busy time (the union of the kernels' intervals on the card), the idle share
-1 - busy / wall, and the kernels with the most device time.  Exits 1
-without CUDA.
+1 - busy / wall, the device time and launches of the row-pad conv kernels
+(K2, K4, K5, each summed over its template instances), and the kernels
+with the most device time.  Exits 1 without CUDA.
 """
 
 from __future__ import annotations
 
+import re
 import sys
 import time
+
+# the row-pad conv kernels by their names in the trace: K2 and K4 are one
+# template whose second argument (the epilogue) tells them apart; K5 is its
+# kernel and the fixed-order sum of its chunks
+CONV_KERNELS = {
+    "K2": r"rowpad_conv_mma_kernel<\d+, true",
+    "K4": r"rowpad_conv_mma_kernel<\d+, false|rowpad_conv_f32_kernel",
+    "K5": r"rowpad_conv_dw_kernel|sum_chunks_kernel",
+}
 
 
 def busy_ms(prof):
@@ -55,6 +66,14 @@ def profile(name, fn, top=15):
           f"{(t1 - t0) * 1e3:.2f} ms, device busy {busy:.2f} ms in "
           f"{n_kernels} kernels, idle share {1.0 - busy / wall:.3f} "
           f"(profiler on)")
+    conv = {k: [0.0, 0] for k in CONV_KERNELS}
+    for e in prof.events():
+        for k, pattern in CONV_KERNELS.items():
+            if e.device_type.name == "CUDA" and re.search(pattern, e.name):
+                conv[k][0] += (e.time_range.end - e.time_range.start) / 1e3
+                conv[k][1] += 1
+    print(f"[profile] {name}: conv kernels' device time " + ", ".join(
+        f"{k} {ms:.2f} ms in {n} kernels" for k, (ms, n) in conv.items()))
     print(prof.key_averages().table(sort_by="self_cuda_time_total",
                                     row_limit=top, max_name_column_width=60))
 

@@ -11,7 +11,8 @@
     `pallas_pillar.rowpad_conv_dw`, `csrc/rowpad_conv_dw.cu`);
   * kernel K9, K4's 'subm' conv with z stride 1 streaming each input row
     once (`rowpad_conv_sliding`, replaces `pallas_pillar.rowpad_conv_sliding`,
-    `csrc/rowpad_conv_sliding.cu`); bf16 only, equal to K4 bit for bit;
+    `csrc/rowpad_conv_sliding.cu`); bf16 only, within K4's tolerance of
+    K4 (K9 sums a fmaf at a time, K4 on the tensor cores);
   * `RowpadConv`, the training conv with the scatter-free backward of
     `pallas_pillar.make_conv_op`: the input gradient is K4 with the flipped
     weight ('up' mode for a strided conv), the weight gradient is K5.  With
@@ -20,8 +21,10 @@
 
 On the flagship scene about one voxel in fifty is occupied, so what bounds
 the conv kernels on the H100 is writing the output table, not the
-arithmetic; they compute only the sites zmask marks occupied and gather
-their taps by rank from device memory.  See the sources.
+arithmetic.  K2, the bf16 K4 and K5 compact each row's occupied sites in
+shared memory, gather their taps by rank and run the products on the
+tensor cores (`mma.sync` bf16, f32 sums); the float32 K4 keeps one thread
+per site on the CUDA cores.  See the sources.
 
 Tensor contract (the reference's, with the spconv-order weight):
   table    (ny_in, nz*cin, B_in)
@@ -62,8 +65,10 @@ CONV_LAUNCHES = 0
 DW_LAUNCHES = 0
 SLIDING_LAUNCHES = 0
 _MODES = {"subm": 0, "down": 1, "up": 2}
-# output rows per K5 block: enough blocks for the card at every level
-DW_ROWS_PER_CHUNK = 16
+# output rows per K5 block: few, so that a launch has thousands of blocks
+# to hide the gathers' latency (each chunk adds a (27, cin, cout) f32
+# partial sum to the workspace)
+DW_ROWS_PER_CHUNK = 3
 # consecutive output rows one K9 block walks (two halo rows per strip)
 SLIDING_ROWS_PER_STRIP = 16
 # RowpadConv's forward 'subm' conv with z stride 1 runs K9 instead of K4;
@@ -276,7 +281,8 @@ def rowpad_conv(table, nbr, weight, zmask=None, *, nz, cin, cout,
     out).  Contract of `rowpad_conv_plain`.  The kernel reads the table and
     the weight in the table's dtype, float32 or else bf16 (float32 only for
     the card-vs-CPU gradient check; see the module docstring), sums in f32
-    and returns that dtype; it takes cout in multiples of 16."""
+    and returns that dtype; it takes cout in multiples of 16 and, in bf16,
+    output rows of at most 65536 sites (out_nz * B_out)."""
     if table.device.type == "cpu":
         return rowpad_conv_plain(table, nbr, weight, zmask, nz=nz, cin=cin,
                                  cout=cout, z_stride=z_stride, out_nz=out_nz,
@@ -370,6 +376,9 @@ def rowpad_conv_dw(table, nbr, d_out, zmask=None, *, nz, cin, cout,
             raise ValueError(f"rowpad_conv_dw: zmask {tuple(zmask.shape)}")
         tensors.append(zm)
     _build.require_cuda("rowpad_conv_dw", *tensors)
+    if cout % 16:
+        raise ValueError(f"rowpad_conv_dw: the kernel takes cout in "
+                         f"multiples of 16, got {cout}")
     n_chunks = -(-ny_out // DW_ROWS_PER_CHUNK)
     partial = torch.empty((n_chunks, 27, cin, cout), dtype=torch.float32,
                           device=table.device)

@@ -54,32 +54,68 @@ def test_stream_vfe_kernel(tiny):
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+# the conv kernels' widths: every cin of the model's convs and input
+# gradients (5 is the stem's, padded to the MMA depth 16) and every cout
+WIDTHS = [(5, 16), (16, 32), (32, 64), (64, 128), (128, 128), (128, 16)]
+# the tiny plan as built; with row 1 of every level emptied and row 2
+# filled (every site occupied); rebuilt at row budget 8 (rows overflow)
+EDGES = ["plan", "rows", "budget8"]
+
+
+@pytest.fixture(scope="module")
+def plans(tiny):
+    from detzero_tpu_torch.models.detection.backbone3d_pallas import (
+        augment_plan_rowpad)
+    from detzero_tpu_torch.models.detection.backbone3d_pillar import (
+        build_pillar_plan)
+
+    _, gpu, *_, table, plan = tiny
+    rows = []
+    for e in plan[:4]:
+        zm = e["rp_zmask"].clone()
+        zm[1], zm[2] = False, True
+        rows.append(dict(e, rp_zmask=zm))
+    b8 = augment_plan_rowpad(build_pillar_plan(
+        table, gpu.grid_zyx, gpu.pillar_capacities), gpu.grid_zyx,
+        row_budget=8)
+    assert b8[0]["rp_zmask"].shape[2] == 8
+    assert int(b8[0]["rp_keep"].sum()) < int(plan[0]["rp_keep"].sum())
+    return {"plan": plan, "rows": rows, "budget8": b8}
+
+
+def _weight(cin, cout, g):
+    return torch.randn((27, cin, cout), generator=g, device=g.device) \
+        * (27 * cin) ** -0.5
+
+
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("cin,cout", WIDTHS)
 @pytest.mark.parametrize("mode,lvl_out,residual", [
     ("subm", 0, True), ("subm", 0, False), ("down", 1, False)])
-def test_rowpad_conv_kernel(tiny, dev, mode, lvl_out, residual):
+def test_rowpad_conv_kernel(plans, dev, mode, lvl_out, residual, cin, cout,
+                            edge):
+    """K2 against its plain version: 2e-2 * max|ref| (the same bf16 inputs,
+    f32 sums in another order, one bf16 rounding)."""
     from detzero_tpu_torch.ops import rowpad_conv
 
-    *_, plan = tiny
+    plan = plans[edge]
     g = torch.Generator(device=dev).manual_seed(1)
     zi, zo = plan[0]["rp_zmask"], plan[lvl_out]["rp_zmask"]
-    table = (torch.randn((*zi.shape[:2], 16, zi.shape[2]), generator=g,
-                         device=dev) * zi[:, :, None]).reshape(
-        zi.shape[0], -1, zi.shape[2]).bfloat16()
-    res = None
-    if residual:
-        res = (torch.randn((*zo.shape[:2], 32, zo.shape[2]), generator=g,
-                           device=dev) * zo[:, :, None]).reshape(
-            zo.shape[0], -1, zo.shape[2]).bfloat16()
-    w = torch.randn((27, 16, 32), generator=g, device=dev) * 0.05
-    sc = torch.rand(32, generator=g, device=dev) + 0.5
-    bi = torch.randn(32, generator=g, device=dev) * 0.1
+    table = _masked_table(zi, cin, g)
+    res = _masked_table(zo, cout, g) if residual else None
+    w = _weight(cin, cout, g)
+    sc = torch.rand(cout, generator=g, device=dev) + 0.5
+    bi = torch.randn(cout, generator=g, device=dev) * 0.1
     nbr = plan[0]["rp_down_nbr" if mode == "down" else "rp_nbr"]
-    kw = dict(nz=8, cin=16, cout=32, out_nz=zo.shape[1], mode=mode,
+    kw = dict(nz=8, cin=cin, cout=cout, out_nz=zo.shape[1], mode=mode,
               z_stride=2 if mode == "down" else 1)
     a = (table, nbr, w, sc, bi, zo, res)
     ref = rowpad_conv.rowpad_conv_fused_plain(*a, **kw)
+    n0 = rowpad_conv.LAUNCHES
     got = rowpad_conv.rowpad_conv_fused(*a, **kw)
     torch.cuda.synchronize()
+    assert rowpad_conv.LAUNCHES == n0 + 1
+    assert float(ref.float().abs().max()) > 0
     assert (got.float() - ref.float()).abs().max() \
         <= 2e-2 * ref.float().abs().max()
 
@@ -90,34 +126,35 @@ def _masked_table(zm, c, g):
     return t.reshape(zm.shape[0], -1, zm.shape[2]).bfloat16()
 
 
-def _train_case(plan, mode, g):
-    """One conv of the tiny plan: L0 subm 16->32, down L0->L1 16->32, or the
-    'up' input gradient of that down conv (L1 32 -> L0 16)."""
+def _train_case(plan, mode, g, cin=16, cout=32):
+    """One conv of the tiny plan: L0 subm cin->cout, down L0->L1 cin->cout,
+    or an 'up' input gradient of a down conv (L1 cin -> L0 cout)."""
     zm0, zm1 = plan[0]["rp_zmask"], plan[1]["rp_zmask"]
+    w = _weight(cin, cout, g)
     if mode == "up":
-        w = torch.randn((27, 32, 16), generator=g, device=zm0.device) * 0.05
-        return (_masked_table(zm1, 32, g), plan[0]["rp_up_nbr"], w, zm0,
-                dict(nz=8, cin=32, cout=16, out_nz=8, mode="up"))
-    w = torch.randn((27, 16, 32), generator=g, device=zm0.device) * 0.05
+        return (_masked_table(zm1, cin, g), plan[0]["rp_up_nbr"], w, zm0,
+                dict(nz=8, cin=cin, cout=cout, out_nz=8, mode="up"))
     if mode == "down":
-        return (_masked_table(zm0, 16, g), plan[0]["rp_down_nbr"], w, zm1,
-                dict(nz=8, cin=16, cout=32, z_stride=2, out_nz=zm1.shape[1],
-                     mode="down"))
-    return (_masked_table(zm0, 16, g), plan[0]["rp_nbr"], w, zm0,
-            dict(nz=8, cin=16, cout=32, mode="subm"))
+        return (_masked_table(zm0, cin, g), plan[0]["rp_down_nbr"], w, zm1,
+                dict(nz=8, cin=cin, cout=cout, z_stride=2,
+                     out_nz=zm1.shape[1], mode="down"))
+    return (_masked_table(zm0, cin, g), plan[0]["rp_nbr"], w, zm0,
+            dict(nz=8, cin=cin, cout=cout, mode="subm"))
 
 
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("cin,cout", WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode", ["subm", "down", "up"])
-def test_rowpad_conv_train_kernel(tiny, dev, mode, dtype):
+def test_rowpad_conv_train_kernel(plans, dev, mode, dtype, cin, cout, edge):
     """K4 against its plain version on the same inputs and weights: bf16
-    tables within 2e-2 * max|ref| (f32 sums in another order, one bf16
-    rounding), float32 tables within 1e-5 * max|ref|."""
+    tables (the tensor-core kernel) within 2e-2 * max|ref| (f32 sums in
+    another order, one bf16 rounding), float32 tables (the CUDA-core
+    kernel) within 1e-5 * max|ref|."""
     from detzero_tpu_torch.ops import rowpad_conv
 
-    *_, plan = tiny
     g = torch.Generator(device=dev).manual_seed(3)
-    table, nbr, w, zm, kw = _train_case(plan, mode, g)
+    table, nbr, w, zm, kw = _train_case(plans[edge], mode, g, cin, cout)
     if dtype == torch.bfloat16:
         w = w.bfloat16().float()
     else:
@@ -134,21 +171,25 @@ def test_rowpad_conv_train_kernel(tiny, dev, mode, dtype):
     assert (got.float() - ref).abs().max() <= tol * ref.abs().max()
 
 
+@pytest.mark.parametrize("edge", EDGES)
+@pytest.mark.parametrize("cin,cout", WIDTHS)
 @pytest.mark.parametrize("mode", ["subm", "down"])
-def test_rowpad_conv_dw_kernel(tiny, dev, mode):
+def test_rowpad_conv_dw_kernel(plans, dev, mode, cin, cout, edge):
     """K5 against its plain version: the same bf16 products summed in f32 in
     another order, 1e-3 * max|ref|; the same result twice (no atomics)."""
     from detzero_tpu_torch.ops import rowpad_conv
 
-    *_, plan = tiny
     g = torch.Generator(device=dev).manual_seed(4)
-    table, nbr, _, zm, kw = _train_case(plan, mode, g)
+    table, nbr, _, zm, kw = _train_case(plans[edge], mode, g, cin, cout)
     d_out = _masked_table(zm, kw["cout"], g)
     ref = rowpad_conv.rowpad_conv_dw_plain(table, nbr, d_out, zm, **kw)
+    n0 = rowpad_conv.DW_LAUNCHES
     got = rowpad_conv.rowpad_conv_dw(table, nbr, d_out, zm, **kw)
     again = rowpad_conv.rowpad_conv_dw(table, nbr, d_out, zm, **kw)
     torch.cuda.synchronize()
+    assert rowpad_conv.DW_LAUNCHES == n0 + 2
     assert got.shape == ref.shape == (27, kw["cin"], kw["cout"])
+    assert float(ref.abs().max()) > 0
     assert (got - ref).abs().max() <= 1e-3 * ref.abs().max()
     assert torch.equal(got, again)
 
@@ -234,10 +275,10 @@ def test_rowpad_nbr_kernel(tiny, dev, row_budget):
 
 @pytest.mark.parametrize("cin,cout", [(5, 16), (128, 32)])
 def test_rowpad_conv_sliding_kernel(tiny, dev, cin, cout):
-    """K9 against K4 on the same bf16 inputs, equal bit for bit (K9 sums
-    every site's terms in K4's order), and against the plain version within
-    2e-2 * max|ref|, K4's bound; cin 128 fills K9's shared memory as at the
-    flagship's L3."""
+    """K9 against the plain version within 2e-2 * max|ref|, K4's bound, and
+    against K4 on the same bf16 inputs within that bound too (K9 sums one
+    fmaf at a time, K4 on the tensor cores); cin 128 fills K9's shared
+    memory as at the flagship's L3."""
     from detzero_tpu_torch.ops import rowpad_conv
 
     *_, plan = tiny
@@ -256,8 +297,9 @@ def test_rowpad_conv_sliding_kernel(tiny, dev, cin, cout):
     assert rowpad_conv.SLIDING_LAUNCHES == n0 + 1
     assert got.dtype == torch.bfloat16 and got.shape == ref.shape
     assert float(ref.abs().max()) > 0
-    assert torch.equal(got, k4)
-    assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+    tol = 2e-2 * ref.abs().max()
+    assert (got.float() - ref).abs().max() <= tol
+    assert (got.float() - k4.float()).abs().max() <= tol
     with pytest.raises(ValueError, match="bf16"):
         rowpad_conv.rowpad_conv_sliding(table.float(), *a[1:], **kw)
     assert rowpad_conv.SLIDING_LAUNCHES == n0 + 1
@@ -377,7 +419,7 @@ def test_tiny_sliding_train_loss(dev, monkeypatch):
     geometry with `rowpad_conv.USE_SLIDING`: its 17 'subm' forward convs
     launch K9 and the other 22 convs K4; the loss and gradient norm are
     finite, and the loss is within 1e-3 relative of the same model's loss
-    through K4 alone (K9 equals K4 bit for bit)."""
+    through K4 alone (K9 and K4 agree within K4's own bound)."""
     from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
     from detzero_tpu_torch.ops import rowpad_conv, rowpad_nbr
 
