@@ -9,9 +9,12 @@ Phases, one line or more each; any failure raises and the exit code is 1:
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes of the flagship path, with stated tolerances
      and CUDA-event times (K2 at every distinct conv of the frame, with
-     its launches there and the launch-weighted ms a frame); K8 (the plan's neighbour-rank maps) on all 10
-     maps of the flagship plan, equal on every element, beside its
-     `torch.searchsorted` yardstick;
+     its launches there and the launch-weighted ms a frame); K8 (the plan's
+     neighbour-rank maps) on all 10 maps of the flagship plan in its one
+     launch, equal on every element to the plain maps and to its
+     `torch.searchsorted` yardstick; K3 on 1000 x 1000 clustered boxes and
+     on the frame's own NMS input (the decoded top-k boxes), each with the
+     walk's keep mask against the plain walk's;
   4. predict: flagship CenterPoint (160k points, 40x1504x1504 grid, bf16,
      random weights from a seeded torch.Generator) on the input of
      __graft_entry__.entry(): launch counts of one frame, frames/s over 5
@@ -53,9 +56,14 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      (K9 for the 17 'subm' forward convs), its warm-up loss against phase
      6's, ms/step over 3 timed steps after the warm-up step, stage times,
      peak memory.
-Every counted path also counts K8: 10 launches a sample (the plan's maps).
+Every counted path also counts K8: one launch a sample (the plan's 10
+maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
+and spills, and fails unless the IoU matrix kernel and the neighbour-map
+kernel have neither a stack frame nor spills.
 Per-stage times are CUDA events that the model's and the trainer's
-`stage_hook` records at their own stage boundaries.
+`stage_hook` records at their own stage boundaries.  Kernel times are CUDA
+events around calls queued behind a spin kernel (`time_ms`), so they read
+the card's time even where a wrapper's host cost outlasts its kernel.
 The line before the card's line carries every kernel's numbers as JSON:
 launches summed over the four counted paths, each path's own in
 `launches_by_path`; `bound_ms`, the least time the card could take for the
@@ -151,26 +159,30 @@ COUNTERS = {
     "rowpad_nbr": ("rowpad_nbr", "LAUNCHES"),
     "rowpad_conv_sliding": ("rowpad_conv", "SLIDING_LAUNCHES"),
 }
-# K8's launches: the 10 neighbour maps of each sample's plan
+# K8: the 10 neighbour maps of each sample's plan, in one launch
 NBR_MAPS = 10
+NBR_LAUNCHES = 1
+# kernels whose ptxas report must show no stack frame and no spills
+NO_STACK_KERNELS = ("iou_bev_matrix_kernel", "rowpad_nbr_maps_kernel")
 # H100 SXM (NVIDIA's data sheet): device memory rate and dense peaks; the
 # data sheet gives no int32 rate, so K8's int32 compares are counted at the
 # CUDA cores' float32 peak
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 # float32 operations of the rotated-box overlap that the data need (a
-# compare, abs, sqrt, sin or cos counts as one), from the body of
+# compare, abs, sin or cos counts as one), from the body of
 # csrc/iou_bev.cu: per box once, the 4 corners (sin, cos, 2 half extents,
-# 10 per corner), the circumradius (3 + sqrt) and the area;
-# per pair, the circumcircle test (centre offset 2, its square 3, radii
-# sum 1, square 1, compare 1); per edge of B that meets live vertices, the
-# edge vector; per live vertex, the side test (5), its compare and the
-# crossing test; per crossing, denom, guard (2), t and the point (6); per
-# vertex of the final polygon, the shoelace term (4), and the abs and the
-# half; with the IoU epilogue, the union and the divide (4) per pair whose
-# circles meet.  Pairs whose circles do not meet need the test only.
-CLIP_OPS = dict(box=49, pair=8, edge=2, vertex=7, crossing=10,
-                area_vertex=4, area=2, iou=4)
+# 10 per corner), the area, the 4 edge vectors (8) and the shoelace area of
+# its quad (4 x 5 + 2); per pair, the cull's side tests (5 and a compare for
+# each of A's 4 corners) at each edge of B it tests; for a pair the cull
+# cannot tell, the clip: per edge of B that meets live vertices, nothing
+# more (the edge vector is the box's); per live vertex, the side test (5),
+# its compare and the crossing test; per crossing, denom, guard (2), t and
+# the point (6); per vertex of the final polygon, the shoelace term (4),
+# and the abs and the half; with the IoU epilogue, the union and the divide
+# (4) per pair.
+CLIP_OPS = dict(box=75, edge_test=24, vertex=7, crossing=10, area_vertex=4,
+                area=2, iou=4)
 
 
 def entry_points(n_points=160_000, seed=0, batch=1):
@@ -218,13 +230,30 @@ def nvidia_smi_line():
     return out[0]
 
 
+# cycles a second for time_ms's spin kernel: at or above the H100's boost
+# clock, so the spin lasts at least as long as asked
+CARD_HZ = 2.0e9
+
+
 def time_ms(fn, iters=10, warmup=2):
+    """The card's ms for one call of fn, from CUDA events around `iters`
+    calls.  A spin kernel queued before the first event holds the card
+    while the host enqueues the calls (1.5 times one call's synchronised
+    host time each), so the events read the kernels back to back, not the
+    host's enqueue, where a call's Python and launch cost outlasts its
+    kernels."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(CARD_HZ * 1.5 * iters * host_s) + 10_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -257,35 +286,32 @@ def with_bound(rec, n_bytes, ops, kind):
 
 def clip_ops(a, b, pairwise=False, iou=False):
     """CLIP_OPS summed over these BEV boxes (N, 5) x (M, 5) (or N matched
-    pairs): the live vertices and crossings at each edge are those the
-    plain clip traces on these inputs."""
+    pairs): the cull's side tests at the edges it tests
+    (`iou_bev._clip_class`), and for the pairs it cannot tell the live
+    vertices and crossings at each edge that the plain clip traces on these
+    inputs."""
     import torch
     from detzero_tpu_torch.ops import iou_bev
 
     ca, cb = iou_bev._corners(a.float()), iou_bev._corners(b.float())
-    ra = 0.5 * torch.hypot(a[:, 2], a[:, 3])
-    rb = 0.5 * torch.hypot(b[:, 2], b[:, 3])
     if pairwise:
         shape = (a.shape[0],)
-        d2 = ((a[:, :2] - b[:, :2]) ** 2).sum(1)
-        r = ra + rb
     else:
         shape = (a.shape[0], b.shape[0])
         ca = [(x[:, None], y[:, None]) for x, y in ca]
         cb = [(x[None, :], y[None, :]) for x, y in cb]
-        d2 = ((a[:, None, :2] - b[None, :, :2]) ** 2).sum(-1)
-        r = ra[:, None] + rb[None, :]
+    cls, tested = iou_bev._clip_class(ca, cb, shape)
     live = []
     iou_bev._clip_area(ca, cb, shape, live=live)
     c = CLIP_OPS
-    meet = (d2 <= r * r).double()
-    per_pair = c["pair"] + meet * c["iou"] * iou
+    clip = (cls == iou_bev.CLIP_NEEDED).double()
+    per_pair = c["edge_test"] * tested.double() + c["iou"] * iou
     for n_in, n_kept, n_out in live:
-        per_pair = per_pair + meet * ((n_in > 0) * c["edge"]
-                                      + n_in * c["vertex"]
+        per_pair = per_pair + clip * (n_in * c["vertex"]
                                       + (n_out - n_kept) * c["crossing"])
     n = live[-1][2]
-    per_pair = per_pair + meet * (n >= 3) * (c["area"] + n * c["area_vertex"])
+    per_pair = per_pair + clip * (n >= 3) * (c["area"]
+                                            + n * c["area_vertex"])
     n_boxes = a.shape[0] + (0 if a is b else b.shape[0])
     return float(per_pair.sum()) + c["box"] * n_boxes
 
@@ -460,14 +486,16 @@ def _nbr_taps(xq, x_in, mode):
 def nbr_ops(xq, x_in, mode):
     """The integer operations K8 needs on these inputs: for each live query
     and each tap whose target row exists (and, in 'up', whose x' is whole),
-    one compare for 'smaller' and one for 'equal' against each live x-coord
-    of the target row."""
+    a binary search over the target row's live x-coords, ceil(log2(live +
+    1)) compares, and the equality test at the found rank."""
+    import torch
     from detzero_tpu_torch.ops.pillars import NBR_BIG
 
     rows, rv, _, ok = _nbr_taps(xq, x_in, mode)
-    live = (x_in < NBR_BIG).sum(1).double()[rows] * rv       # (3, ny_out)
+    live = (x_in < NBR_BIG).sum(1).double()[rows]            # (3, ny_out)
+    steps = (torch.ceil(torch.log2(live + 1)) + 1) * rv      # (3, ny_out)
     per_row = ok.sum(2).double()                             # (3dx, ny_out)
-    return 2.0 * float((live[:, None, :] * per_row[None]).sum())
+    return float((steps[:, None, :] * per_row[None]).sum())
 
 
 def nbr_searchsorted(xq, x_in, mode):
@@ -493,17 +521,26 @@ def nbr_searchsorted(xq, x_in, mode):
 
 
 def check_nbr(plan):
-    """K8 against its plain version (`pillars.rowpad_nbr_rank`) on the card,
-    all 10 maps of this plan: integers, equal on every element; its
-    `torch.searchsorted` yardstick must build the same maps.  Returns K8's
-    record, one case a map."""
+    """K8 on the card, all 10 maps of this plan in its one launch, against
+    its plain version (`pillars.rowpad_nbr_rank`): integers, equal on every
+    element; its `torch.searchsorted` yardstick must build the same maps.
+    Times the one launch against the plain maps and the yardstick summed
+    over the 10.  Returns K8's record, one case a map (each with its plain
+    and yardstick ms and its bound)."""
     import torch
     from detzero_tpu_torch.ops import pillars, rowpad_nbr
 
+    named = nbr_cases(plan)
+    args = [(q, x_in, mode) for _, q, x_in, mode in named]
+    n0 = rowpad_nbr.LAUNCHES
+    maps = rowpad_nbr.rowpad_nbr_maps(args)
+    torch.cuda.synchronize()
+    if rowpad_nbr.LAUNCHES != n0 + 1:
+        raise AssertionError(f"rowpad_nbr_maps: {rowpad_nbr.LAUNCHES - n0} "
+                             f"launches for {len(args)} maps, expected 1")
     cases = []
-    for name, q, x_in, mode in nbr_cases(plan):
+    for (name, q, x_in, mode), got in zip(named, maps):
         ref = pillars.rowpad_nbr_rank(q, x_in, mode)
-        got = rowpad_nbr.rowpad_nbr(q, x_in, mode)
         lib = nbr_searchsorted(q, x_in, mode)
         torch.cuda.synchronize()
         diff = int((got != ref).sum())
@@ -511,20 +548,25 @@ def check_nbr(plan):
             raise AssertionError(f"rowpad_nbr {name}: {diff} elements differ "
                                  f"from the plain version; yardstick equal: "
                                  f"{torch.equal(lib, ref)}")
-        ms = time_ms(lambda: rowpad_nbr.rowpad_nbr(q, x_in, mode))
         pms = time_ms(lambda: pillars.rowpad_nbr_rank(q, x_in, mode),
                       iters=3)
         lms = time_ms(lambda: nbr_searchsorted(q, x_in, mode), iters=3)
-        rc = with_bound(dict(case=name, max_abs_err=float(diff), ms=ms,
+        rc = with_bound(dict(case=name, max_abs_err=float(diff), ms=0.0,
                              plain_ms=pms, library_ms=lms),
                         nbytes(q, x_in, got), nbr_ops(q, x_in, mode), "f32")
         cases.append(rc)
         print(f"[kernels] rowpad_nbr {name} {tuple(got.shape)}: "
               f"{int((ref[:, :9] < x_in.shape[1]).sum())} taps found, 0 "
-              f"elements differ, {ms:.4f} ms vs plain {pms:.3f} ms, "
-              f"searchsorted yardstick {lms:.3f} ms, bound "
-              f"{rc['bound_ms']:.5f} ms ({rc['bound_by']})")
-    return sum_cases(cases)
+              f"elements differ, plain {pms:.3f} ms, searchsorted "
+              f"yardstick {lms:.3f} ms, bound {rc['bound_ms']:.5f} ms "
+              f"({rc['bound_by']})")
+    rec = sum_cases(cases)
+    rec["ms"] = time_ms(lambda: rowpad_nbr.rowpad_nbr_maps(args))
+    print(f"[kernels] rowpad_nbr_maps, all {len(args)} maps in one launch: "
+          f"{rec['ms']:.4f} ms vs plain {rec['plain_ms']:.3f} ms, "
+          f"searchsorted yardstick {rec['library_ms']:.3f} ms (summed over "
+          f"the maps), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    return rec
 
 
 def clustered_boxes(device, n=200, per=5, seed=2):
@@ -670,6 +712,10 @@ def check_kernels(model, pts, pv, device):
         dict(max_abs_err=err, ms=ms, plain_ms=pms), nbytes(boxes, boxes, got),
         clip_ops(boxes, boxes, iou=True), "f32")
 
+    # K3 on this frame's own NMS input, with the walk's keep mask against
+    # the plain walk's on the plain matrix
+    rec["boxes_iou_bev"]["frame"] = check_frame_nms(model, p, v)
+
     # the walk on that matrix: keep masks must be equal
     valid = torch.ones(1000, dtype=torch.bool, device=device)
     valid[::17] = False
@@ -690,6 +736,110 @@ def check_kernels(model, pts, pv, device):
         dict(max_abs_err=float(diff), ms=ms, plain_ms=pms),
         nbytes(got) + 2 * valid.numel(), got.numel(), "f32")
     return rec
+
+
+def frame_nms_input(model, p, v):
+    """The BEV boxes (k, 5), valid mask and threshold that one predict of
+    (p, v) hands to K3 and the walk (`nms.nms_bev`: the decoded top-k
+    boxes of both heads, k <= NMS_PRE_MAXSIZE 1024), recorded by wrapping
+    the two for this one call.  Score threshold 0, so that the walk has
+    valid boxes at random weights."""
+    from detzero_tpu_torch.ops import nms
+
+    seen = {}
+    iou_fn, walk_fn = nms.boxes_iou_bev, nms.nms_walk
+
+    def iou_rec(a, b):
+        seen["boxes"] = a.clone()
+        return iou_fn(a, b)
+
+    def walk_rec(iou, valid, thresh):
+        seen["valid"], seen["thresh"] = valid.clone(), thresh
+        return walk_fn(iou, valid, thresh)
+
+    nms.boxes_iou_bev, nms.nms_walk = iou_rec, walk_rec
+    try:
+        model.predict(p[None], v[None], score_thresh=0.0)
+    finally:
+        nms.boxes_iou_bev, nms.nms_walk = iou_fn, walk_fn
+    return seen["boxes"], seen["valid"], seen["thresh"]
+
+
+def check_frame_nms(model, p, v):
+    """K3 on the frame's own NMS input against its plain version (1e-5
+    absolute, as on the clustered boxes), and the walk's keep mask on K3's
+    matrix equal to the plain walk's on the plain matrix.  Returns the
+    record, timed and bounded there."""
+    import torch
+    from detzero_tpu_torch.ops import iou_bev, nms
+
+    boxes, valid, thresh = frame_nms_input(model, p, v)
+    ref = iou_bev.boxes_iou_bev_plain(boxes, boxes)
+    got = iou_bev.boxes_iou_bev(boxes, boxes)
+    keep_ref = nms.nms_walk_plain(ref, valid, thresh)
+    keep = nms.nms_walk(got, valid, thresh)
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    diff = int((keep != keep_ref).sum())
+    ms = time_ms(lambda: iou_bev.boxes_iou_bev(boxes, boxes))
+    pms = time_ms(lambda: iou_bev.boxes_iou_bev_plain(boxes, boxes), iters=3)
+    rc = with_bound(dict(max_abs_err=err, ms=ms, plain_ms=pms),
+                    nbytes(boxes, boxes, got),
+                    clip_ops(boxes, boxes, iou=True), "f32")
+    n_clip = int((iou_bev.clip_class_plain(boxes, boxes)
+                  == iou_bev.CLIP_NEEDED).sum())
+    print(f"[kernels] boxes_iou_bev on the frame's NMS input "
+          f"{tuple(got.shape)} ({n_clip} pairs need the clip, "
+          f"{int(valid.sum())} valid, {int(keep.sum())} kept at "
+          f"{thresh}): max_abs_err {err:.3g} (tol 1e-05), keep masks differ "
+          f"at {diff} (must be 0), {ms:.4f} ms vs plain {pms:.3f} ms, bound "
+          f"{rc['bound_ms']:.5f} ms ({rc['bound_by']})")
+    if not (err <= 1e-5 and diff == 0):
+        raise AssertionError("boxes_iou_bev on the frame's NMS input "
+                             "disagrees with its plain version")
+    return rc
+
+
+def ptxas_report(log):
+    """{kernel's mangled name: (registers, stack frame bytes, spill stores,
+    spill loads)} from nvcc's -Xptxas -v report."""
+    import re
+
+    out, name, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name, props = m.group(1), None
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and props is not None:
+            out[name] = (int(m.group(1)),) + props
+            name, props = None, None
+    return out
+
+
+def print_ptxas(log):
+    """Phase 2: each entry function's registers, stack frame and spills;
+    fails unless every instance of NO_STACK_KERNELS has neither a stack
+    frame nor spills."""
+    report = ptxas_report(log)
+    for name, (regs, stack, st, ld) in sorted(report.items()):
+        print(f"[build] {name}: {regs} registers, {stack} bytes stack "
+              f"frame, {st} bytes spill stores, {ld} bytes spill loads")
+    for kern in NO_STACK_KERNELS:
+        hits = {n: r for n, r in report.items() if kern in n}
+        if not hits or any(r[1:] != (0, 0, 0) for r in hits.values()):
+            raise AssertionError(f"{kern}: ptxas report {hits}, expected no "
+                                 f"stack frame and no spills")
 
 
 def _counter_module(name):
@@ -771,7 +921,8 @@ def run_predict(device):
     print(f"[predict] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
-                 "boxes_iou_bev": 1, "nms_walk": 1, "rowpad_nbr": NBR_MAPS})
+                 "boxes_iou_bev": 1, "nms_walk": 1,
+                 "rowpad_nbr": NBR_LAUNCHES})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     for k, t in out.items():
@@ -835,7 +986,7 @@ def check_tiny(device):
                 if not torch.equal(g[key].cpu(), c[key]):
                     raise AssertionError(f"tiny plan L{lv} {key}: the card's "
                                          f"map differs from the CPU's")
-    if (n_maps, rowpad_nbr.LAUNCHES) != (NBR_MAPS, NBR_MAPS):
+    if (n_maps, rowpad_nbr.LAUNCHES) != (NBR_MAPS, NBR_LAUNCHES):
         raise AssertionError(f"tiny plan: {n_maps} maps compared, "
                              f"{rowpad_nbr.LAUNCHES} K8 launches")
     print(f"[predict] tiny plan card vs CPU: all {n_maps} neighbour maps "
@@ -1088,7 +1239,7 @@ def run_train(device):
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": TRAIN_BATCH, "rowpad_conv": 39,
                  "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
-                 "rowpad_nbr": NBR_MAPS * TRAIN_BATCH})
+                 "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
     print(f"[train] warm-up step loss {warm:.6f}")
     return rec, timed_steps("train", model, trainer, batch, device,
                             want), warm
@@ -1172,7 +1323,8 @@ def check_tiny_train(device):
             torch.cuda.synchronize()
             n = (rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
                  iou_bev.PAIRWISE_LAUNCHES, rowpad_nbr.LAUNCHES)
-            if name != "cpu" and n != (39, 20, 2, NBR_MAPS * TRAIN_BATCH):
+            if name != "cpu" and n != (39, 20, 2,
+                                       NBR_LAUNCHES * TRAIN_BATCH):
                 raise AssertionError(f"tiny train draw {seed} {name}: K4, "
                                      f"K5, K6, K8 launches {n}")
             runs[name] = (float(loss.detach()), {
@@ -1218,7 +1370,7 @@ def run_two_stage_predict(device):
     print(f"[two-stage predict] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"rowpad_conv_fused": 20, "boxes_iou_bev": 1,
-                 "nms_walk": 1, "rowpad_nbr": NBR_MAPS})
+                 "nms_walk": 1, "rowpad_nbr": NBR_LAUNCHES})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     r = FLAGSHIP2_CFG["ROI_BUDGET"]
@@ -1325,7 +1477,7 @@ def run_two_stage_train(device):
                  "rowpad_conv": 39, "rowpad_conv_dw": 20,
                  "boxes_iou_bev_pairwise": 2,
                  "boxes_overlap_bev": TRAIN_BATCH,
-                 "rowpad_nbr": NBR_MAPS * TRAIN_BATCH})
+                 "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
     return rec, timed_steps("two-stage train", model, trainer, batch,
                             device, want)
 
@@ -1427,7 +1579,7 @@ def check_tiny_two_stage(device):
         n = read_counts()
         if dev != "cpu" and (n["boxes_overlap_bev"], n["rowpad_conv"],
                              n["rowpad_nbr"]) \
-                != (TRAIN_BATCH, 39, NBR_MAPS * TRAIN_BATCH):
+                != (TRAIN_BATCH, 39, NBR_LAUNCHES * TRAIN_BATCH):
             raise AssertionError(f"tiny two-stage loss launches {n}")
         grads[name] = {k: q.grad.cpu() for k, q in model.named_parameters()
                        if k.startswith("roi_head.")}
@@ -1555,7 +1707,7 @@ def run_sliding_train(device, warm_ref):
         want.update({"stream_rowpad_feats": TRAIN_BATCH,
                      "rowpad_conv_sliding": 17, "rowpad_conv": 22,
                      "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
-                     "rowpad_nbr": NBR_MAPS * TRAIN_BATCH})
+                     "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
         launches = timed_steps("sliding train", model, trainer, batch,
                                device, want)
     finally:
@@ -1595,9 +1747,7 @@ def main():
     _build.lib()
     print(f"[build] {so.relative_to(_build.BUILD_ROOT.parent.parent)} in "
           f"{time.time() - t0:.1f} s")
-    for line in (so.parent / "ptxas.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    print_ptxas((so.parent / "ptxas.log").read_text())
 
     # 3. kernels at the flagship path's shapes
     pts, pv = entry_points()
@@ -1649,6 +1799,11 @@ def main():
                         "library_ms": r.get("library_ms")})
         if "weighted_ms" in r:
             kernels[-1]["weighted_ms"] = r["weighted_ms"]
+        # K3 on the frame's NMS input, K7 on 1000 x 1000 clustered boxes
+        for key in ("frame", "big"):
+            if key in r:
+                kernels[-1][key] = {k: r[key][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms")}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -49,10 +49,11 @@ SIGNATURES = {
     # table, nbr, w, zmask, out, ny, nz, cin, b_in, cout, b_out,
     # rows_per_strip, stream
     "dz_rowpad_conv_sliding": [_P] * 5 + [_I] * 7 + [_P],
-    # xq, x_in, out, ny_out, b_out, ny_in, b_in, mode, stream
-    "dz_rowpad_nbr": [_P] * 3 + [_I] * 5 + [_P],
-    # boxes_a, boxes_b, out, n, m, iou, stream
-    "dz_iou_bev": [_P] * 3 + [_I] * 3 + [_P],
+    # ptrs (3 a map: xq, x_in, out), dims (5 a map: ny_out, b_out, ny_in,
+    # b_in, mode), n_maps, stream
+    "dz_rowpad_nbr_maps": [_P, _P, _I, _P],
+    # boxes_a, boxes_b, out, scratch, n, m, iou, stream
+    "dz_iou_bev": [_P] * 4 + [_I] * 3 + [_P],
     # boxes_a, boxes_b, out, n, iou, stream
     "dz_iou_bev_pairwise": [_P] * 3 + [_I] * 2 + [_P],
     # iou, valid, keep, k, thresh, stream

@@ -33,7 +33,7 @@ from detzero_tpu_torch.models.detection.backbone3d_pillar import plan_grids
 from detzero_tpu_torch.models.layers import AutoNames, MaskedBatchNorm
 from detzero_tpu_torch.ops import pillars
 from detzero_tpu_torch.ops.rowpad_conv import RowpadConv, rowpad_conv_fused
-from detzero_tpu_torch.ops.rowpad_nbr import rowpad_nbr
+from detzero_tpu_torch.ops.rowpad_nbr import rowpad_nbr_maps
 
 
 def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
@@ -42,7 +42,8 @@ def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
     (ny, 16, B); for levels 0..2 also rp_down_nbr (at the output grid) and
     rp_up_nbr (this grid; the strided conv's transpose, which the training
     slice consumes).  The 10 neighbour maps come from kernel K8
-    (`ops/rowpad_nbr.py`) on the card.  Returns new level dicts."""
+    (`ops/rowpad_nbr.py`), one launch on the card.  Returns new level
+    dicts."""
     grids = plan_grids(grid_zyx)
     out = [dict(e) for e in plan]
     xq = []
@@ -57,11 +58,13 @@ def augment_plan_rowpad(plan, grid_zyx, row_budget: int = 128):
             e["zmask"].to(torch.int8), lay["gidx"], lay["gvalid"]) > 0
         xq.append(pillars.rowpad_xcoords(e["coords2d"][:, 1], lay["gidx"],
                                          lay["gvalid"]))
-        e["rp_nbr"] = rowpad_nbr(xq[lvl], xq[lvl], mode="subm")
+    cases = [(lvl, "rp_nbr", (xq[lvl], xq[lvl], "subm")) for lvl in range(4)]
     for lvl in range(3):
-        out[lvl]["rp_down_nbr"] = rowpad_nbr(xq[lvl + 1], xq[lvl],
-                                             mode="down")
-        out[lvl]["rp_up_nbr"] = rowpad_nbr(xq[lvl], xq[lvl + 1], mode="up")
+        cases += [(lvl, "rp_down_nbr", (xq[lvl + 1], xq[lvl], "down")),
+                  (lvl, "rp_up_nbr", (xq[lvl], xq[lvl + 1], "up"))]
+    maps = rowpad_nbr_maps([c for _, _, c in cases])
+    for (lvl, key, _), nbr in zip(cases, maps):
+        out[lvl][key] = nbr
     return out
 
 

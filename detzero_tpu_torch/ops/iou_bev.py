@@ -10,16 +10,19 @@
     (`boxes_overlap_bev_pairwise`) or IoU (`boxes_iou_bev_pairwise`),
     replacing `pallas_iou._launch_pairwise`.
 
-The CUDA kernels are in `csrc/iou_bev.cu`: one thread per pair, the clipped
-polygon (at most 8 vertices) in registers; the source counts their
-operations.
+The CUDA kernels are in `csrc/iou_bev.cu`: the matrix (K3, K7) is two
+kernels, one computing each box's corners, areas and edges once, the other
+taking a 64 x 64 tile of pairs a block and clipping only the pairs whose
+result its cull (`clip_class_plain` here, the same side tests) cannot
+tell; the pairwise kernel (K6) clips one pair a thread.  Both keep the clipped polygon (at most 8 vertices) in registers;
+the source counts their operations.
 
 All versions follow `pallas_iou._clip_area` step for step: clip A's quad by
 B's four half-planes (Sutherland-Hodgman, on-edge tolerance 1e-3, |denom|
 guard 1e-8, order-keeping compaction), shoelace area, union clamped at
 1e-6.  The wrappers launch the kernels for CUDA tensors and take the plain
-versions for CPU tensors.  `LAUNCHES` counts K3's launches,
-`OVERLAP_LAUNCHES` K7's, `PAIRWISE_LAUNCHES` K6's.
+versions for CPU tensors.  `LAUNCHES` counts K3's launches (a call's
+two kernels count one), `OVERLAP_LAUNCHES` K7's, `PAIRWISE_LAUNCHES` K6's.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ PAIRWISE_LAUNCHES = 0
 _CAP = 8
 _EPS = 1e-8
 _TOL = 1e-3
+# floats of a box's record in the matrix kernel's scratch (kRecRows)
+_REC_ROWS = 18
 
 
 def _corners(b):
@@ -106,6 +111,47 @@ def _clip_area(ca, cb, shape, live=None):
     return torch.where(n >= 3.0, torch.abs(area2) * 0.5, zero)
 
 
+# what the clip of a pair comes to, as the matrix kernel's cull tells it
+CLIP_EMPTY, CLIP_INSIDE, CLIP_NEEDED = 0, 1, 2
+
+
+def _clip_class(ca, cb, shape):
+    """The cull of `csrc/iou_bev.cu` (classify) on corner lists that
+    broadcast to `shape`: `_clip_area`'s own side tests of A's four corners
+    against B's edges, in its edge order.  The first edge that does not
+    keep every corner decides: none kept -> the clip empties the polygon
+    (CLIP_EMPTY, area exactly 0); some kept -> CLIP_NEEDED.  Every edge
+    keeping every corner leaves A's quad as it was (CLIP_INSIDE, area its
+    shoelace).  Returns (class int8, edges tested int8), each of `shape`."""
+    cls = torch.full(shape, CLIP_INSIDE, dtype=torch.int8,
+                     device=ca[0][0].device)
+    tested = torch.full_like(cls, 4)
+    open_ = torch.ones(shape, dtype=torch.bool, device=cls.device)
+    for e in range(4):
+        x1, y1 = cb[e]
+        x2, y2 = cb[(e + 1) % 4]
+        ex, ey = (x2 - x1).expand(shape), (y2 - y1).expand(shape)
+        kept = sum((ex * (y.expand(shape) - y1) - ey * (x.expand(shape) - x1)
+                    >= -_TOL).to(torch.int8) for x, y in ca)
+        done = open_ & (kept < 4)
+        cls = torch.where(done, torch.where(kept == 0, CLIP_EMPTY,
+                                            CLIP_NEEDED).to(torch.int8), cls)
+        tested = torch.where(done, torch.full_like(tested, e + 1), tested)
+        open_ &= ~done
+    return cls, tested
+
+
+def clip_class_plain(boxes_a, boxes_b):
+    """(N, 5) x (M, 5) -> (N, M) int8: CLIP_EMPTY where the clip's result is
+    exactly 0, CLIP_INSIDE where it is A's own quad area, CLIP_NEEDED
+    where only the clip can tell (the matrix kernel's cull)."""
+    a = boxes_a[:, :5].float()
+    b = boxes_b[:, :5].float()
+    ca = [(x[:, None], y[:, None]) for x, y in _corners(a)]
+    cb = [(x[None, :], y[None, :]) for x, y in _corners(b)]
+    return _clip_class(ca, cb, (a.shape[0], b.shape[0]))[0]
+
+
 def boxes_overlap_bev_plain(boxes_a, boxes_b):
     """(N, 5) x (M, 5) -> (N, M) intersection areas."""
     a = boxes_a[:, :5].float()
@@ -134,9 +180,12 @@ def _matrix(boxes_a, boxes_b, iou):
                          f"{tuple(boxes_a.shape)} and {tuple(boxes_b.shape)}")
     out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32,
                       device=a.device)
+    # the kernel's per-box records: corners, areas, edge vectors
+    rec = torch.empty(_REC_ROWS * (a.shape[0] + b.shape[0]),
+                      dtype=torch.float32, device=a.device)
     rc = _build.lib().dz_iou_bev(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 a.shape[0], b.shape[0], int(iou),
-                                 _build.stream_ptr(a.device))
+                                 rec.data_ptr(), a.shape[0], b.shape[0],
+                                 int(iou), _build.stream_ptr(a.device))
     global LAUNCHES, OVERLAP_LAUNCHES
     if iou:
         LAUNCHES += 1

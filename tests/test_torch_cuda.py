@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_iou_cases import FAMILIES, pair_set
+
 pytestmark = pytest.mark.cuda
 
 
@@ -245,8 +247,11 @@ def test_overlap_matrix_kernel(dev, n, m):
 @pytest.mark.parametrize("row_budget", [8, 128])
 def test_rowpad_nbr_kernel(tiny, dev, row_budget):
     """K8 against its plain version on the card, all 10 maps of the tiny
-    plan: equal on every element.  Row budget 8 drops the pillars past the
-    8th of a row."""
+    plan in one launch: equal on every element.  Row budget 8 drops the
+    pillars past the 8th of a row.  `augment_plan_rowpad` builds the same
+    maps in one launch a sample."""
+    from detzero_tpu_torch.models.detection.backbone3d_pallas import (
+        augment_plan_rowpad)
     from detzero_tpu_torch.models.detection.backbone3d_pillar import (
         build_pillar_plan, plan_grids)
     from detzero_tpu_torch.ops import pillars, rowpad_nbr
@@ -259,18 +264,27 @@ def test_rowpad_nbr_kernel(tiny, dev, row_budget):
                                     (ny, nx), row_budget)
         xq.append(pillars.rowpad_xcoords(plan[lvl]["coords2d"][:, 1],
                                          lay["gidx"], lay["gvalid"]))
-    cases = [(xq[lvl], xq[lvl], "subm") for lvl in range(4)]
+    cases = [(lvl, "rp_nbr", (xq[lvl], xq[lvl], "subm")) for lvl in range(4)]
     for lvl in range(3):
-        cases += [(xq[lvl + 1], xq[lvl], "down"),
-                  (xq[lvl], xq[lvl + 1], "up")]
+        cases += [(lvl, "rp_down_nbr", (xq[lvl + 1], xq[lvl], "down")),
+                  (lvl, "rp_up_nbr", (xq[lvl], xq[lvl + 1], "up"))]
     n0 = rowpad_nbr.LAUNCHES
-    for q, x_in, mode in cases:
+    maps = rowpad_nbr.rowpad_nbr_maps([c for *_, c in cases])
+    torch.cuda.synchronize()
+    assert rowpad_nbr.LAUNCHES == n0 + 1
+    for (_, key, (q, x_in, mode)), got in zip(cases, maps):
         ref = pillars.rowpad_nbr_rank(q, x_in, mode)
-        got = rowpad_nbr.rowpad_nbr(q, x_in, mode)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.int32 and torch.equal(got, ref), mode
+        assert got.dtype == torch.int32 and torch.equal(got, ref), key
         assert int((ref[:, :9] < row_budget).sum()) > 0
-    assert rowpad_nbr.LAUNCHES == n0 + 10
+    aug = augment_plan_rowpad(plan, gpu.grid_zyx, row_budget)
+    torch.cuda.synchronize()
+    assert rowpad_nbr.LAUNCHES == n0 + 2
+    for (lvl, key, _), got in zip(cases, maps):
+        assert torch.equal(aug[lvl][key], got), (lvl, key)
+    # one map alone is one launch too
+    q, x_in, mode = cases[5][2]
+    assert torch.equal(rowpad_nbr.rowpad_nbr(q, x_in, mode), maps[5])
+    assert rowpad_nbr.LAUNCHES == n0 + 3
 
 
 @pytest.mark.parametrize("cin,cout", [(5, 16), (128, 32)])
@@ -303,6 +317,86 @@ def test_rowpad_conv_sliding_kernel(tiny, dev, cin, cout):
     with pytest.raises(ValueError, match="bf16"):
         rowpad_conv.rowpad_conv_sliding(table.float(), *a[1:], **kw)
     assert rowpad_conv.SLIDING_LAUNCHES == n0 + 1
+
+
+def _clustered_boxes(n, per, seed):
+    """n clusters of `per` jittered BEV boxes (real overlaps), as
+    chip_smoke.py draws them."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.rand((n, 1, 5), generator=g)
+    base = base * torch.tensor([80.0, 80.0, 4.0, 2.0, 6.283]) \
+        + torch.tensor([-40.0, -40.0, 1.0, 1.0, -3.1416])
+    jit = torch.randn((n, per, 5), generator=g) \
+        * torch.tensor([0.3, 0.3, 0.2, 0.1, 0.2])
+    boxes = (base + jit).reshape(n * per, 5)
+    boxes[:, 2:4] = boxes[:, 2:4].abs() + 0.2
+    return boxes
+
+
+def _matrix_kernels(a, b):
+    """K3 and K7 on (a, b) against their plain versions on the card, one
+    launch each: K3 within 1e-5 absolute, K7 within 1e-5 of the largest
+    area (sin/cos may differ in the last ulp; the rest is rounded alike)."""
+    from detzero_tpu_torch.ops import iou_bev
+
+    n3, n7 = iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES
+    iou = iou_bev.boxes_iou_bev(a, b)
+    ov = iou_bev.boxes_overlap_bev(a, b)
+    ref_iou = iou_bev.boxes_iou_bev_plain(a, b)
+    ref_ov = iou_bev.boxes_overlap_bev_plain(a, b)
+    torch.cuda.synchronize()
+    assert (iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES) == (n3 + 1, n7 + 1)
+    assert iou.shape == ov.shape == (a.shape[0], b.shape[0])
+    assert float((iou - ref_iou).abs().max()) <= 1e-5
+    assert float((ov - ref_ov).abs().max()) \
+        <= 1e-5 * max(float(ref_ov.max()), 1.0)
+    return iou, ref_iou
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_iou_matrix_kernels_adversarial(dev, name):
+    """K3 and K7 on the box families that sit on the clip's on-edge rule
+    and the kernel's cull (tests/torch_iou_cases.py): identical and
+    touching boxes, A at the edge band of B, tiny edges, zero-size boxes on
+    either side, 0 and pi/2 headings, far pairs whose plain overlap is
+    nonzero; and K6, which shares the clip, bit for bit on their matched
+    pairs."""
+    from detzero_tpu_torch.ops import iou_bev
+
+    a, b = (torch.from_numpy(x).to(dev) for x in pair_set(name))
+    _matrix_kernels(a, b)
+    for fn, plain in ((iou_bev.boxes_overlap_bev_pairwise,
+                       iou_bev.boxes_overlap_bev_pairwise_plain),
+                      (iou_bev.boxes_iou_bev_pairwise,
+                       iou_bev.boxes_iou_bev_pairwise_plain)):
+        got, ref = fn(a, b), plain(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), name
+
+
+@pytest.mark.parametrize("n,m", [(1, 1), (33, 65), (1000, 1024)])
+def test_iou_matrix_kernels_ragged(dev, n, m):
+    """K3 and K7 at shapes off the 64 x 64 tile: one pair, a ragged pair of
+    edges, and the NMS budget's 1000 x 1024."""
+    a = _clustered_boxes((n + 4) // 5, 5, seed=n)[:n].to(dev)
+    b = _clustered_boxes((m + 3) // 4, 4, seed=m)[:m].to(dev)
+    b[: min(n, m) // 2] = a[: min(n, m) // 2]
+    _matrix_kernels(a, b)
+
+
+def test_iou_matrix_kernel_clustered(dev):
+    """K3 on chip_smoke.py's 1000 x 1000 clustered boxes, and the walk's
+    keep masks on it equal to the plain walk's on the plain matrix."""
+    from detzero_tpu_torch.ops import nms
+
+    boxes = _clustered_boxes(200, 5, seed=2).to(dev)
+    iou, ref = _matrix_kernels(boxes, boxes)
+    assert int((iou > 0.7).sum()) > 1000
+    valid = torch.ones(1000, dtype=torch.bool, device=dev)
+    valid[::17] = False
+    for t in (0.1, 0.5, 0.7):
+        assert torch.equal(nms.nms_walk(iou, valid, t),
+                           nms.nms_walk_plain(ref, valid, t))
 
 
 def test_iou_and_walk_kernels(dev):
@@ -452,7 +546,7 @@ def test_tiny_sliding_train_loss(dev, monkeypatch):
         n = (rowpad_conv.SLIDING_LAUNCHES, rowpad_conv.CONV_LAUNCHES,
              rowpad_conv.DW_LAUNCHES, rowpad_nbr.LAUNCHES)
         assert tuple(a - b for a, b in zip(n, n0)) == (
-            (17, 22, 20, 20) if sliding else (0, 39, 20, 20))
+            (17, 22, 20, 2) if sliding else (0, 39, 20, 2))
         gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum()
                                for p in m.parameters() if p.grad is not None))
         assert bool(torch.isfinite(loss)) and bool(torch.isfinite(gnorm))
