@@ -13,8 +13,11 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      neighbour-rank maps) on all 10 maps of the flagship plan in its one
      launch, equal on every element to the plain maps and to its
      `torch.searchsorted` yardstick; K3 on 1000 x 1000 clustered boxes and
-     on the frame's own NMS input (the decoded top-k boxes), each with the
-     walk's keep mask against the plain walk's;
+     on the frame's own NMS input (the decoded top-k boxes); K10 (rotated
+     NMS: the mask epilogue of K3's tile kernel and the one-warp walk) on
+     both, its mask words equal to the pack of K3's matrix and its keep
+     mask to the plain walk's, the mask kernel, the walk and the whole
+     each timed beside its bound;
   4. predict: flagship CenterPoint (160k points, 40x1504x1504 grid, bf16,
      random weights from a seeded torch.Generator) on the input of
      __graft_entry__.entry(): launch counts of one frame, frames/s over 5
@@ -58,8 +61,11 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      peak memory.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
-and spills, and fails unless the IoU matrix kernel and the neighbour-map
-kernel have neither a stack frame nor spills.
+and spills, and fails unless the IoU matrix kernel (the mask instance by
+name), the neighbour-map kernel, K10's walk and the stream VFE kernel have
+neither a stack frame nor spills.  The JSON record of K10 (`nms_walk`)
+lists both of its sources and carries the mask's, the walk's and the
+clustered boxes' numbers beside the frame's.
 Per-stage times are CUDA events that the model's and the trainer's
 `stage_hook` records at their own stage boundaries.  Kernel times are CUDA
 events around calls queued behind a spin kernel (`time_ms`), so they read
@@ -131,8 +137,10 @@ KERNELS = {
                           "detzero_tpu/ops/pallas_pillar.py:638"),
     "boxes_iou_bev": ("detzero_tpu_torch/csrc/iou_bev.cu",
                       "detzero_tpu/ops/pallas_iou.py:186"),
+    # K10: the walk and K3's tile kernel with the mask epilogue
     "nms_walk": ("detzero_tpu_torch/csrc/nms_walk.cu",
-                 "detzero_tpu/ops/pallas_iou.py:247"),
+                 "detzero_tpu/ops/pallas_iou.py:284",
+                 "detzero_tpu_torch/csrc/iou_bev.cu"),
     "rowpad_conv": ("detzero_tpu_torch/csrc/rowpad_conv.cu",
                     "detzero_tpu/ops/pallas_pillar.py:577"),
     "rowpad_conv_dw": ("detzero_tpu_torch/csrc/rowpad_conv_dw.cu",
@@ -162,8 +170,12 @@ COUNTERS = {
 # K8: the 10 neighbour maps of each sample's plan, in one launch
 NBR_MAPS = 10
 NBR_LAUNCHES = 1
-# kernels whose ptxas report must show no stack frame and no spills
-NO_STACK_KERNELS = ("iou_bev_matrix_kernel", "rowpad_nbr_maps_kernel")
+# kernels whose ptxas report must show no stack frame and no spills: the
+# IoU tile kernel (every epilogue, the mask's by name), the neighbour maps,
+# K10's walk and the stream VFE
+NO_STACK_KERNELS = ("iou_bev_matrix_kernel", "iou_bev_matrix_kernelILi2E",
+                    "rowpad_nbr_maps_kernel", "nms_walk_bits_kernel",
+                    "stream_vfe_tile_kernel")
 # H100 SXM (NVIDIA's data sheet): device memory rate and dense peaks; the
 # data sheet gives no int32 rate, so K8's int32 compares are counted at the
 # CUDA cores' float32 peak
@@ -180,9 +192,10 @@ PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
 # its compare and the crossing test; per crossing, denom, guard (2), t and
 # the point (6); per vertex of the final polygon, the shoelace term (4),
 # and the abs and the half; with the IoU epilogue, the union and the divide
-# (4) per pair.
+# (4) per pair; with the mask epilogue (K10), those 4 and the compare with
+# the threshold per pair of the upper triangle.
 CLIP_OPS = dict(box=75, edge_test=24, vertex=7, crossing=10, area_vertex=4,
-                area=2, iou=4)
+                area=2, iou=4, threshold=1)
 
 
 def entry_points(n_points=160_000, seed=0, batch=1):
@@ -284,12 +297,13 @@ def with_bound(rec, n_bytes, ops, kind):
     return rec
 
 
-def clip_ops(a, b, pairwise=False, iou=False):
+def clip_ops(a, b, pairwise=False, iou=False, upper=False):
     """CLIP_OPS summed over these BEV boxes (N, 5) x (M, 5) (or N matched
     pairs): the cull's side tests at the edges it tests
     (`iou_bev._clip_class`), and for the pairs it cannot tell the live
     vertices and crossings at each edge that the plain clip traces on these
-    inputs."""
+    inputs.  `upper`: one box set against itself through the mask
+    epilogue, only the pairs j > i, each with the IoU and its compare."""
     import torch
     from detzero_tpu_torch.ops import iou_bev
 
@@ -312,6 +326,9 @@ def clip_ops(a, b, pairwise=False, iou=False):
     n = live[-1][2]
     per_pair = per_pair + clip * (n >= 3) * (c["area"]
                                             + n * c["area_vertex"])
+    if upper:
+        per_pair = torch.triu(per_pair + c["iou"] + c["threshold"],
+                              diagonal=1)
     n_boxes = a.shape[0] + (0 if a is b else b.shape[0])
     return float(per_pair.sum()) + c["box"] * n_boxes
 
@@ -712,75 +729,54 @@ def check_kernels(model, pts, pv, device):
         dict(max_abs_err=err, ms=ms, plain_ms=pms), nbytes(boxes, boxes, got),
         clip_ops(boxes, boxes, iou=True), "f32")
 
-    # K3 on this frame's own NMS input, with the walk's keep mask against
-    # the plain walk's on the plain matrix
-    rec["boxes_iou_bev"]["frame"] = check_frame_nms(model, p, v)
-
-    # the walk on that matrix: keep masks must be equal
+    # K3 on this frame's own NMS input (its IoU epilogue, kept as K3 and
+    # K7's check; NMS itself takes the mask epilogue), then K10 there and
+    # on the clustered boxes
+    boxes_f, valid_f, thresh_f = frame_nms_input(model, p, v)
+    rec["boxes_iou_bev"]["frame"] = check_iou_frame(boxes_f)
+    rec["nms_walk"] = check_nms(boxes_f, valid_f, thresh_f,
+                                "the frame's NMS input")
     valid = torch.ones(1000, dtype=torch.bool, device=device)
     valid[::17] = False
-    keep_ref = nms.nms_walk_plain(got, valid, 0.7)
-    keep = nms.nms_walk(got, valid, 0.7)
-    torch.cuda.synchronize()
-    diff = int((keep != keep_ref).sum())
-    ms = time_ms(lambda: nms.nms_walk(got, valid, 0.7))
-    pms = time_ms(lambda: nms.nms_walk_plain(got, valid, 0.7), iters=2,
-                  warmup=1)
-    print(f"[kernels] nms_walk k=1000: {int(keep.sum())} kept, {diff} "
-          f"differ from plain (must be 0), {ms:.3f} ms vs plain {pms:.3f} ms")
-    if diff:
-        raise AssertionError("nms_walk keep mask differs from its plain "
-                             "version")
-    # one compare per (box, later box) pair at most, k^2 f32 operations
-    rec["nms_walk"] = with_bound(
-        dict(max_abs_err=float(diff), ms=ms, plain_ms=pms),
-        nbytes(got) + 2 * valid.numel(), got.numel(), "f32")
+    rec["nms_walk"]["clustered"] = check_nms(boxes, valid, 0.7,
+                                             "1000 clustered boxes")
     return rec
 
 
 def frame_nms_input(model, p, v):
     """The BEV boxes (k, 5), valid mask and threshold that one predict of
-    (p, v) hands to K3 and the walk (`nms.nms_bev`: the decoded top-k
-    boxes of both heads, k <= NMS_PRE_MAXSIZE 1024), recorded by wrapping
-    the two for this one call.  Score threshold 0, so that the walk has
-    valid boxes at random weights."""
+    (p, v) hands to K10 (`nms.nms_bev`: the decoded top-k boxes of both
+    heads, k <= NMS_PRE_MAXSIZE 1024), recorded by wrapping
+    `nms.nms_keep_mask` for this one call.  Score threshold 0, so that the
+    walk has valid boxes at random weights."""
     from detzero_tpu_torch.ops import nms
 
     seen = {}
-    iou_fn, walk_fn = nms.boxes_iou_bev, nms.nms_walk
+    keep_fn = nms.nms_keep_mask
 
-    def iou_rec(a, b):
-        seen["boxes"] = a.clone()
-        return iou_fn(a, b)
+    def keep_rec(bev, valid, thresh):
+        seen.update(boxes=bev.clone(), valid=valid.clone(), thresh=thresh)
+        return keep_fn(bev, valid, thresh)
 
-    def walk_rec(iou, valid, thresh):
-        seen["valid"], seen["thresh"] = valid.clone(), thresh
-        return walk_fn(iou, valid, thresh)
-
-    nms.boxes_iou_bev, nms.nms_walk = iou_rec, walk_rec
+    nms.nms_keep_mask = keep_rec
     try:
         model.predict(p[None], v[None], score_thresh=0.0)
     finally:
-        nms.boxes_iou_bev, nms.nms_walk = iou_fn, walk_fn
+        nms.nms_keep_mask = keep_fn
     return seen["boxes"], seen["valid"], seen["thresh"]
 
 
-def check_frame_nms(model, p, v):
-    """K3 on the frame's own NMS input against its plain version (1e-5
-    absolute, as on the clustered boxes), and the walk's keep mask on K3's
-    matrix equal to the plain walk's on the plain matrix.  Returns the
-    record, timed and bounded there."""
+def check_iou_frame(boxes):
+    """K3 on the frame's NMS boxes against its plain version (1e-5
+    absolute, as on the clustered boxes).  Returns the record, timed and
+    bounded there."""
     import torch
-    from detzero_tpu_torch.ops import iou_bev, nms
+    from detzero_tpu_torch.ops import iou_bev
 
-    boxes, valid, thresh = frame_nms_input(model, p, v)
     ref = iou_bev.boxes_iou_bev_plain(boxes, boxes)
     got = iou_bev.boxes_iou_bev(boxes, boxes)
-    keep_ref = nms.nms_walk_plain(ref, valid, thresh)
-    keep = nms.nms_walk(got, valid, thresh)
     torch.cuda.synchronize()
     err = max_abs(got, ref)
-    diff = int((keep != keep_ref).sum())
     ms = time_ms(lambda: iou_bev.boxes_iou_bev(boxes, boxes))
     pms = time_ms(lambda: iou_bev.boxes_iou_bev_plain(boxes, boxes), iters=3)
     rc = with_bound(dict(max_abs_err=err, ms=ms, plain_ms=pms),
@@ -789,14 +785,65 @@ def check_frame_nms(model, p, v):
     n_clip = int((iou_bev.clip_class_plain(boxes, boxes)
                   == iou_bev.CLIP_NEEDED).sum())
     print(f"[kernels] boxes_iou_bev on the frame's NMS input "
-          f"{tuple(got.shape)} ({n_clip} pairs need the clip, "
-          f"{int(valid.sum())} valid, {int(keep.sum())} kept at "
-          f"{thresh}): max_abs_err {err:.3g} (tol 1e-05), keep masks differ "
-          f"at {diff} (must be 0), {ms:.4f} ms vs plain {pms:.3f} ms, bound "
+          f"{tuple(got.shape)} ({n_clip} pairs need the clip): max_abs_err "
+          f"{err:.3g} (tol 1e-05), {ms:.4f} ms vs plain {pms:.3f} ms, bound "
           f"{rc['bound_ms']:.5f} ms ({rc['bound_by']})")
-    if not (err <= 1e-5 and diff == 0):
+    if not err <= 1e-5:
         raise AssertionError("boxes_iou_bev on the frame's NMS input "
                              "disagrees with its plain version")
+    return rc
+
+
+def check_nms(boxes, valid, thresh, what):
+    """K10 on score-sorted BEV boxes (k, 5): the mask kernel's words equal
+    the pack of K3's own matrix bit for bit (`nms_mask_plain`); the keep
+    mask of `nms_keep_mask` (boxes, mask, walk) equal to the plain walk's
+    on the plain matrix, and `nms_walk` on K3's float matrix (torch's
+    pack, the walk kernel) equal to the plain walk's on it.  Times the
+    mask kernel, the walk and the whole, each beside its bound: bytes the
+    boxes, the mask written and read, valid and keep; operations the clip
+    work of the upper triangle (`clip_ops(upper=True)`) and the walk's
+    chain steps and the kept rows' word ORs.  max_abs_err counts the keep
+    entries that differ."""
+    import torch
+    from detzero_tpu_torch.ops import iou_bev, nms
+
+    k = boxes.shape[0]
+    iou = iou_bev.boxes_iou_bev(boxes, boxes)
+    ref_iou = iou_bev.boxes_iou_bev_plain(boxes, boxes)
+    words = nms.nms_mask(boxes, thresh)
+    keep = nms.nms_keep_mask(boxes, valid, thresh)
+    keep_f = nms.nms_walk(iou, valid, thresh)
+    torch.cuda.synchronize()
+    bad_words = int((words != nms.nms_mask_plain(iou, thresh)).sum())
+    diff = int((keep != nms.nms_walk_plain(ref_iou, valid, thresh)).sum())
+    diff_f = int((keep_f != nms.nms_walk_plain(iou, valid, thresh)).sum())
+    ms_mask = time_ms(lambda: nms.nms_mask(boxes, thresh))
+    ms_walk = time_ms(lambda: nms.nms_walk_bits(words, valid))
+    ms = time_ms(lambda: nms.nms_keep_mask(boxes, valid, thresh))
+    pms = time_ms(lambda: nms.nms_keep_mask_plain(boxes, valid, thresh),
+                  iters=2, warmup=1)
+    n_kept = int(keep.sum())
+    mask_bytes = nbytes(boxes[:, :5], words)
+    walk_bytes = nbytes(words, valid, keep)
+    mask_ops = clip_ops(boxes, boxes, upper=True)
+    walk_ops = k + n_kept * words.shape[1]
+    rc = with_bound(dict(max_abs_err=float(diff), ms=ms, plain_ms=pms),
+                    mask_bytes + walk_bytes, mask_ops + walk_ops, "f32")
+    rc["mask"] = with_bound(dict(ms=ms_mask), mask_bytes, mask_ops, "f32")
+    rc["walk"] = with_bound(dict(ms=ms_walk), walk_bytes, walk_ops, "f32")
+    print(f"[kernels] nms_keep_mask on {what} (k={k}, {int(valid.sum())} "
+          f"valid, {n_kept} kept at {thresh}): mask words differ from the "
+          f"pack of K3's matrix at {bad_words}, keep masks from the plain "
+          f"walk's at {diff}, the float walk's at {diff_f} (all must be 0); "
+          f"{ms:.4f} ms (bound {rc['bound_ms']:.5f}, {rc['bound_by']}) vs "
+          f"plain {pms:.3f} ms; mask {ms_mask:.4f} ms (bound "
+          f"{rc['mask']['bound_ms']:.5f}, {rc['mask']['bound_by']}), walk "
+          f"{ms_walk:.4f} ms (bound {rc['walk']['bound_ms']:.5f}, "
+          f"{rc['walk']['bound_by']})")
+    if bad_words or diff or diff_f:
+        raise AssertionError(f"nms_keep_mask on {what} disagrees with its "
+                             f"plain version")
     return rc
 
 
@@ -921,8 +968,7 @@ def run_predict(device):
     print(f"[predict] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
-                 "boxes_iou_bev": 1, "nms_walk": 1,
-                 "rowpad_nbr": NBR_LAUNCHES})
+                 "nms_walk": 1, "rowpad_nbr": NBR_LAUNCHES})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     for k, t in out.items():
@@ -1369,8 +1415,8 @@ def run_two_stage_predict(device):
     launches = read_counts()
     print(f"[two-stage predict] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
-    want.update({"rowpad_conv_fused": 20, "boxes_iou_bev": 1,
-                 "nms_walk": 1, "rowpad_nbr": NBR_LAUNCHES})
+    want.update({"rowpad_conv_fused": 20, "nms_walk": 1,
+                 "rowpad_nbr": NBR_LAUNCHES})
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     r = FLAGSHIP2_CFG["ROI_BUDGET"]
@@ -1473,7 +1519,7 @@ def run_two_stage_train(device):
     rec = check_overlap(model, batch, device)
     torch.cuda.empty_cache()
     want = dict.fromkeys(COUNTERS, 0)
-    want.update({"boxes_iou_bev": TRAIN_BATCH, "nms_walk": TRAIN_BATCH,
+    want.update({"nms_walk": TRAIN_BATCH,
                  "rowpad_conv": 39, "rowpad_conv_dw": 20,
                  "boxes_iou_bev_pairwise": 2,
                  "boxes_overlap_bev": TRAIN_BATCH,
@@ -1504,7 +1550,7 @@ def check_tiny_two_stage(device):
         rounding reorders, so the card's own end-to-end boxes are held to
         be finite only.
       * The training loss at batch 2 in float32 on the card (K4 on float32
-        tables; K3, the walk and K7 on the train-mode proposals), float32
+        tables; K10 and K7 on the train-mode proposals), float32
         on both sides: the loss and each RoI term (roi_cls, roi_reg,
         roi_corner) within 1e-3 relative.  The RoI head's gradient there
         also carries the first stage's rounding (K4 and cuDNN against the
@@ -1785,7 +1831,7 @@ def main():
 
     # result lines
     kernels = []
-    for name, (src, replaces) in KERNELS.items():
+    for name, (src, replaces, *more) in KERNELS.items():
         r = rec[name]
         counts = {path: c[name] for path, c in by_path.items() if c[name]}
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -1797,13 +1843,17 @@ def main():
                         "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r.get("library_ms")})
+        if more:
+            kernels[-1]["sources"] = [src, *more]
         if "weighted_ms" in r:
             kernels[-1]["weighted_ms"] = r["weighted_ms"]
-        # K3 on the frame's NMS input, K7 on 1000 x 1000 clustered boxes
-        for key in ("frame", "big"):
+        # K3 on the frame's NMS input, K7 on 1000 x 1000 clustered boxes,
+        # K10's mask and walk alone and K10 on the clustered boxes
+        for key in ("frame", "big", "mask", "walk", "clustered"):
             if key in r:
                 kernels[-1][key] = {k: r[key][k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms")}
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+                    if k in r[key]}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -56,8 +56,10 @@ SIGNATURES = {
     "dz_iou_bev": [_P] * 4 + [_I] * 3 + [_P],
     # boxes_a, boxes_b, out, n, iou, stream
     "dz_iou_bev_pairwise": [_P] * 3 + [_I] * 2 + [_P],
-    # iou, valid, keep, k, thresh, stream
-    "dz_nms_walk": [_P] * 3 + [_I, ctypes.c_float, _P],
+    # boxes, words, scratch, k, thresh, stream
+    "dz_nms_mask": [_P] * 3 + [_I, ctypes.c_float, _P],
+    # mask, valid, keep, k, stream
+    "dz_nms_walk_bits": [_P] * 3 + [_I, _P],
 }
 
 

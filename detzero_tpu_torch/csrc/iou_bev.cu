@@ -1,6 +1,8 @@
 // Rotated BEV boxes as [x, y, dx, dy, heading]: the N x M matrix
 // boxes_a (n, 5) x boxes_b (m, 5) -> (n, m) f32 of IoU (kernel K3) or of
-// intersection areas (kernel K7), and the matched-pair overlap / IoU
+// intersection areas (kernel K7), NMS's suppression bitmask of k boxes
+// against themselves (k, ceil(k / 64)) uint64 (the mask half of kernel
+// K10, walked by nms_walk.cu), and the matched-pair overlap / IoU
 // (n, 5) x (n, 5) -> (n,) f32 (kernel K6).
 //
 // Replaces detzero_tpu/ops/pallas_iou.py::_launch with both of its
@@ -26,7 +28,7 @@
 // scene (far apart, or a padded box) only the side tests that show the
 // clip's result without running it.  chip_smoke.py's clip_ops counts that
 // work on the inputs it times.  The bound at every shape the paths run is
-// the bytes: 20 read per box, 4 written per pair.
+// the bytes: 20 read per box, 4 written per pair (the mask: 1 bit).
 //
 // Design of the matrix (K3, K7): two kernels on one stream.  The first,
 // one thread a box, computes for each of the n + m boxes its four corners,
@@ -281,17 +283,48 @@ __global__ void iou_bev_boxes_kernel(const float* __restrict__ boxes_a,
   r[(size_t)kQuadArea * total] = quad_area(cx, cy);
 }
 
-// The N x M matrix from the boxes' records; the epilogue writes the IoU
-// (K3) or, with !kIoU, the intersection area (K7), as the TPU kernel's two
-// epilogues do.
-template <bool kIoU>
+// What the matrix kernel's epilogue writes for a pair: the IoU (K3), the
+// intersection area (K7), or NMS's suppression bit (K10's mask).
+enum Epilogue { kEpIoU = 0, kEpOverlap = 1, kEpMask = 2 };
+
+// The N x M matrix from the boxes' records: A's record of box g at column
+// g, B's at column b_off + g, of a record array `total` columns wide.
+//
+// kEpMask (K10, replacing the IoU tiles of pallas_iou._launch_nms): one
+// box set against itself (n == m, b_off 0), only the tiles on or above the
+// diagonal, one block a tile in row-major order of blockIdx.x.  Row i of
+// the tile gives one 64-bit word: bit jl of word (i, tile column) is
+//   iou_of(inter, area_i, area_j) > thresh  &&  j > i  &&  j < n,
+// the IoU epilogue's own value compared in float32, so the bits are those
+// of K3's matrix, packed.  Culled pairs set theirs by ballot (columns lane
+// and lane + 32), clipped pairs OR theirs into the row's shared word; a
+// warp owns its 8 rows, so it writes their words once at the end.  The
+// diagonal tile also writes the zero words left of it, so the whole
+// (n, words) array is written and nothing else touches it.
+template <int kEp>
 __global__ void __launch_bounds__(kThreads)
     iou_bev_matrix_kernel(const float* __restrict__ rec,
-                          float* __restrict__ out, int n, int m) {
+                          void* __restrict__ out_, int n, int m, int total,
+                          int b_off, float thresh, int words) {
   __shared__ float sa[kRowsA][kTile];
   __shared__ float sb[kRecRows][kTile];  // row kQuadArea unused
   __shared__ unsigned short queue[kWarps][kRowsPerWarp * kTile];
-  const int n0 = blockIdx.y * kTile, m0 = blockIdx.x * kTile;
+  __shared__ unsigned smask[kEp == kEpMask ? kTile : 1][2];
+  float* out = (float*)out_;
+  unsigned long long* words_out = (unsigned long long*)out_;
+  int ty = blockIdx.y, tx = blockIdx.x;
+  if (kEp == kEpMask) {
+    // upper-triangle tile number -> (ty, tx), row ty holding T - ty tiles
+    const int T = words;
+    const long long L = blockIdx.x;
+    const double c = 2.0 * T + 1.0;
+    ty = (int)((c - sqrt(c * c - 8.0 * (double)L)) * 0.5);
+    auto first = [T](long long r) { return r * T - r * (r - 1) / 2; };
+    while (ty > 0 && first(ty) > L) --ty;
+    while (first(ty + 1) <= L) ++ty;
+    tx = ty + (int)(L - first(ty));
+  }
+  const int n0 = ty * kTile, m0 = tx * kTile;
   const int t = threadIdx.x;
 
   // prologue: one box a thread, A's by threads 0..63, B's by 64..127; a
@@ -299,14 +332,21 @@ __global__ void __launch_bounds__(kThreads)
   if (t < 2 * kTile) {
     const bool is_a = t < kTile;
     const int c = is_a ? t : t - kTile;
-    const int g = (is_a ? n0 : m0) + c, total = n + m;
+    const int g = (is_a ? n0 : m0) + c;
     const bool live = g < (is_a ? n : m);
-    const float* r = rec + (is_a ? g : n + g);
+    const float* r = rec + (is_a ? g : b_off + g);
     float(*dst)[kTile] = is_a ? sa : sb;
 #pragma unroll
     for (int k = 0; k < kRecRows; ++k)
       if (k < kRowsA || !is_a)
         dst[k][c] = live ? r[(size_t)k * total] : 0.f;
+  }
+  if (kEp == kEpMask && tx == ty) {
+    // the words left of the diagonal, zero
+    for (int e = t; e < kTile * tx; e += kThreads) {
+      const int i = n0 + e / tx;
+      if (i < n) words_out[(size_t)i * words + e % tx] = 0ull;
+    }
   }
   __syncthreads();
 
@@ -339,15 +379,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int jl = h * 32 + lane, j = m0 + jl;
-      bool clip = false;
-      if (j < m) {
+      bool clip = false, bit = false;
+      if (j < m && (kEp != kEpMask || j > i)) {
         const int cls = classify(ax, ay, bx[h], by[h], ex[h], ey[h]);
         clip = cls == kClip;
         if (!clip) {
           const float inter = cls == kInside ? sa[kQuadArea][il] : 0.f;
-          out[(size_t)i * m + j] =
-              kIoU ? iou_of(inter, sa[kArea][il], area_b[h]) : inter;
+          if (kEp == kEpMask)
+            bit = iou_of(inter, sa[kArea][il], area_b[h]) > thresh;
+          else
+            out[(size_t)i * m + j] =
+                kEp == kEpIoU ? iou_of(inter, sa[kArea][il], area_b[h])
+                              : inter;
         }
+      }
+      if (kEp == kEpMask) {
+        const unsigned bits = __ballot_sync(0xffffffffu, bit);
+        if (lane == 0) smask[il][h] = bits;
       }
       const unsigned ball = __ballot_sync(0xffffffffu, clip);
       if (clip)
@@ -374,8 +422,21 @@ __global__ void __launch_bounds__(kThreads)
       cey[k] = sb[kEy + k][jl];
     }
     const float inter = clip_area(ax, ay, cbx, cby, cex, cey);
-    out[(size_t)(n0 + il) * m + m0 + jl] =
-        kIoU ? iou_of(inter, sa[kArea][il], sb[kArea][jl]) : inter;
+    if (kEp == kEpMask) {
+      if (iou_of(inter, sa[kArea][il], sb[kArea][jl]) > thresh)
+        atomicOr(&smask[il][jl / 32], 1u << (jl % 32));
+    } else {
+      out[(size_t)(n0 + il) * m + m0 + jl] =
+          kEp == kEpIoU ? iou_of(inter, sa[kArea][il], sb[kArea][jl])
+                        : inter;
+    }
+  }
+  if (kEp == kEpMask) {
+    __syncwarp();
+    const int il = warp * kRowsPerWarp + lane, i = n0 + il;
+    if (lane < kRowsPerWarp && i < n)
+      words_out[(size_t)i * words + tx] =
+          ((unsigned long long)smask[il][1] << 32) | smask[il][0];
   }
 }
 
@@ -427,10 +488,29 @@ DZ_EXPORT int dz_iou_bev(const void* boxes_a, const void* boxes_b, void* out,
   iou_bev_boxes_kernel<<<(n + m + threads - 1) / threads, threads, 0, st>>>(
       (const float*)boxes_a, (const float*)boxes_b, rec, n, m);
   if (iou)
-    iou_bev_matrix_kernel<true><<<grid, kThreads, 0, st>>>(rec, (float*)out,
-                                                           n, m);
+    iou_bev_matrix_kernel<kEpIoU><<<grid, kThreads, 0, st>>>(
+        rec, out, n, m, n + m, n, 0.f, 0);
   else
-    iou_bev_matrix_kernel<false><<<grid, kThreads, 0, st>>>(rec, (float*)out,
-                                                            n, m);
+    iou_bev_matrix_kernel<kEpOverlap><<<grid, kThreads, 0, st>>>(
+        rec, out, n, m, n + m, n, 0.f, 0);
+  return dz_launch_status();
+}
+
+// K10's suppression mask of k score-sorted boxes (k, 5): words (k,
+// ceil(k / 64)) uint64, bit j % 64 of word (i, j / 64) set where box i's
+// IoU with a later box j exceeds thresh.  scratch holds 18 * k floats.
+DZ_EXPORT int dz_nms_mask(const void* boxes, void* words, void* scratch,
+                          int k, float thresh, void* stream) {
+  if (k == 0) return dz_launch_status();
+  const int T = (k + kTile - 1) / kTile;
+  const long long tiles = (long long)T * (T + 1) / 2;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  float* rec = (float*)scratch;
+  const int threads = 128;
+  iou_bev_boxes_kernel<<<(k + threads - 1) / threads, threads, 0, st>>>(
+      (const float*)boxes, (const float*)boxes, rec, k, 0);
+  iou_bev_matrix_kernel<kEpMask><<<(unsigned)tiles, kThreads, 0, st>>>(
+      rec, words, k, k, k, 0, thresh, T);
   return dz_launch_status();
 }

@@ -6,6 +6,8 @@
     (`boxes_overlap_bev`, replaces `pallas_iou.boxes_overlap_bev`, the
     overlap epilogue of the same `_launch`): K3's kernel with the other
     epilogue;
+  * kernel K10's suppression mask (`ops/nms.py`): K3's kernel with a third
+    epilogue that packs IoU > thresh into bits, the upper triangle only;
   * kernel K6, matched pairs (N, 5) x (N, 5) -> (N,): intersection areas
     (`boxes_overlap_bev_pairwise`) or IoU (`boxes_iou_bev_pairwise`),
     replacing `pallas_iou._launch_pairwise`.

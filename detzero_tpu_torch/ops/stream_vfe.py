@@ -2,9 +2,10 @@
 row-padded transposed conv layout (ny, nz*F, B).
 
 Replaces `detzero_tpu/ops/pallas_pillar.py::stream_rowpad_feats`.  The CUDA
-kernel is `csrc/stream_vfe.cu`: one block per BEV row; the thread that owns
-the first point of a voxel's run sums the run in stream order and writes the
-mean, so no atomics are needed.  What bounds it on the H100 is bytes (one
+kernel is `csrc/stream_vfe.cu`: one block per BEV row builds the row's
+(nz*F, B) tile in shared memory (the head thread of each voxel's run sums
+the run in stream order, so no atomics are needed) and writes it to device
+memory once, 16 bytes a store.  What bounds it on the H100 is bytes (one
 read of the stream, one write of the table); see the source for the design.
 
 `stream_rowpad_feats` launches the kernel for CUDA tensors and takes the

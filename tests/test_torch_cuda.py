@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from torch_iou_cases import FAMILIES, pair_set
+from torch_vfe_cases import SCENES, vfe_scene
 
 pytestmark = pytest.mark.cuda
 
@@ -416,6 +417,109 @@ def test_iou_and_walk_kernels(dev):
                            nms.nms_walk_plain(got, valid, t))
 
 
+NMS_K = [1, 63, 64, 65, 1000, 1024, 1500]
+
+
+@pytest.mark.parametrize("k", NMS_K)
+def test_nms_mask_kernel_bits(dev, k):
+    """K10's mask kernel (the mask epilogue of K3's tile kernel) on k
+    clustered boxes: its words equal `nms_mask_plain` of K3's own matrix
+    bit for bit (the same iou_of compared in float32), the lower triangle
+    and the columns past k zero; the walk on them equals the plain walk on
+    the words, and `nms_keep_mask` (boxes, mask and walk in one call, one
+    launch counted) equals the plain walk on K3's matrix and on the plain
+    matrix; `nms_walk` on K3's float matrix (torch's pack, the walk
+    kernel) too.  Each of the three wrappers counts one launch a call."""
+    from detzero_tpu_torch.ops import iou_bev, nms
+
+    boxes = _clustered_boxes((k + 4) // 5, 5, seed=k)[:k].to(dev)
+    g = torch.Generator().manual_seed(k)
+    valid = (torch.rand(k, generator=g) > 0.1).to(dev)
+    iou = iou_bev.boxes_iou_bev(boxes, boxes)
+    ref_iou = iou_bev.boxes_iou_bev_plain(boxes, boxes)
+    for t in (0.1, 0.5, 0.7):
+        n0 = nms.LAUNCHES
+        words = nms.nms_mask(boxes, t)
+        ref = nms.nms_mask_plain(iou, t)
+        torch.cuda.synchronize()
+        assert words.shape == (k, (k + 63) // 64)
+        assert torch.equal(words, ref), t
+        keep_bits = nms.nms_walk_bits(words, valid)
+        assert torch.equal(keep_bits, nms.nms_walk_bits_plain(ref, valid))
+        keep = nms.nms_keep_mask(boxes, valid, t)
+        assert nms.LAUNCHES == n0 + 3
+        plain = nms.nms_walk_plain(iou, valid, t)
+        assert torch.equal(keep, plain), t
+        assert torch.equal(keep, nms.nms_keep_mask_plain(boxes, valid, t))
+        assert torch.equal(nms.nms_walk(iou, valid, t),
+                           nms.nms_walk_plain(ref_iou, valid, t))
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_nms_mask_kernel_adversarial(dev, name):
+    """The mask kernel's words equal the pack of K3's matrix on the
+    adversarial box families (both sets of a family as one NMS input),
+    and the keep masks the plain walk's."""
+    from detzero_tpu_torch.ops import iou_bev, nms
+
+    a, b = (torch.from_numpy(x) for x in pair_set(name))
+    boxes = torch.cat([a, b]).to(dev)
+    valid = torch.ones(boxes.shape[0], dtype=torch.bool, device=dev)
+    valid[::7] = False
+    iou = iou_bev.boxes_iou_bev(boxes, boxes)
+    for t in (0.1, 0.5, 0.7):
+        assert torch.equal(nms.nms_mask(boxes, t),
+                           nms.nms_mask_plain(iou, t)), (name, t)
+        assert torch.equal(nms.nms_keep_mask(boxes, valid, t),
+                           nms.nms_walk_plain(iou, valid, t)), (name, t)
+
+
+def test_nms_walk_unstaged(dev):
+    """Past 2,048 boxes the walk reads its rows from device memory, not
+    shared memory, with 8 removal words a lane: 13,000 clustered boxes,
+    the kernel's keep mask against the plain walk over the kernel's own
+    words, and the words against the pack of K3's matrix."""
+    from detzero_tpu_torch.ops import iou_bev, nms
+
+    k = 13_000
+    boxes = _clustered_boxes(k // 5, 5, seed=3).to(dev)
+    valid = torch.ones(k, dtype=torch.bool, device=dev)
+    valid[::11] = False
+    words = nms.nms_mask(boxes, 0.7)
+    assert torch.equal(nms.nms_walk_bits(words, valid),
+                       nms.nms_walk_bits_plain(words, valid))
+    iou = iou_bev.boxes_iou_bev(boxes, boxes)
+    assert torch.equal(words, nms.nms_mask_plain(iou, 0.7))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scene", SCENES)
+def test_stream_vfe_kernel_edges(dev, scene, dtype):
+    """K1 on the edge scenes of tests/torch_vfe_cases.py (empty windows, a
+    voxel of 600 points across three of the kernel's chunks, a 2-point
+    voxel across the end of a chunk that continues a longer one, lanes
+    past the row budget, weight-0 points, a padded tail, a float32 tile
+    built in z-slabs): float32 within 1e-5 * max|ref| (the sums agree to
+    f32 rounding), bf16 within 2^-7 * max|ref| (one bf16 ulp of the
+    means)."""
+    from detzero_tpu_torch.ops import stream_vfe
+
+    d = vfe_scene(scene)
+    out_dtype = getattr(torch, dtype)
+    args = [torch.from_numpy(d[k]).to(dev)
+            for k in ("payload", "lane", "z", "wstart")]
+    kw = dict(nz=d["nz"], ny=d["ny"], row_budget=d["b"], out_dtype=out_dtype)
+    ref = stream_vfe.stream_rowpad_feats_plain(*args, **kw)
+    n0 = stream_vfe.LAUNCHES
+    got = stream_vfe.stream_rowpad_feats(*args, **kw)
+    torch.cuda.synchronize()
+    assert stream_vfe.LAUNCHES == n0 + 1
+    assert got.shape == ref.shape and got.dtype == out_dtype
+    tol = (1e-5 if dtype == "float32" else 2 ** -7) \
+        * float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+
+
 def test_tiny_model_card_vs_cpu(tiny):
     """bf16 on the card against f32 on the CPU: 5e-2 * max(|ref|, 1)."""
     cpu, gpu, p, v, *_ = tiny
@@ -566,10 +670,10 @@ def test_tiny_two_stage_card_vs_cpu(dev):
         head on the CPU's proposals and tables within the same bound (its
         proposals come from a top-k of the heatmaps, which bf16 rounding
         reorders, so the end-to-end boxes are held only to be finite);
-        launches K2 20, K3 1, walk 1, no K1 (the dense table is gathered);
+        launches K2 20, K10 1, no K3 or K1 (the dense table is gathered);
       * the training loss at batch 2 in float32 on the card (K4 on float32
         tables), float32 on both sides: the loss and each RoI term within
-        1e-3 relative, and launches K4 39, K5 20, K6 2, K3 2, walk 2, K7 2;
+        1e-3 relative, and launches K4 39, K5 20, K6 2, K10 2, K7 2;
       * the RoI head, its targets (K7) and loss alone in train mode on the
         CPU's proposals, BEV map and tables (the first stage's rounding,
         which its batch norms amplify, left out): every RoI head gradient
@@ -617,7 +721,7 @@ def test_tiny_two_stage_card_vs_cpu(dev):
                    got_3d["multi_scale_3d_features"])
         torch.cuda.synchronize()
         assert tuple(a - b for a, b in zip(counts(), n0)) == (
-            0, 20, 1, 1, 0, 0, 0, 0)
+            0, 20, 0, 1, 0, 0, 0, 0)
         to_dev = {k: x.to(dev) if torch.is_tensor(x) else x
                   for k, x in ref_prop.items()}
         ms = {name: {k: x.to(dev) for k, x in lvl.items()}
@@ -657,7 +761,7 @@ def test_tiny_two_stage_card_vs_cpu(dev):
     loss_g.backward()
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), n0)) == (
-        0, 0, 2, 2, 39, 20, 2, 2)
+        0, 0, 0, 2, 39, 20, 2, 2)
     ref = float(loss_c.detach())
     assert abs(float(loss_g.detach()) - ref) <= 1e-3 * abs(ref)
     for k in ("roi_cls", "roi_reg", "roi_corner"):

@@ -223,7 +223,8 @@ def test_nms_walk_plain_parity(thresh):
 
 
 @pytest.mark.parametrize("n,pre_max,post_max", [(300, 256, 128),
-                                                (40, 512, 128)])
+                                                (40, 512, 128),
+                                                (1500, 1024, 256)])
 def test_nms_bev_parity(n, pre_max, post_max):
     rng = np.random.RandomState(n)
     b5 = _random_boxes(3 + n, n)
