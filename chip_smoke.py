@@ -51,9 +51,9 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      heads, multi-scale tables, the RoI head on the CPU's proposals), the
      float32 training loss and its RoI terms, and the RoI head's gradient
      from its own loss on the CPU's proposals;
- 10. sliding kernel: K9 (rowpad_conv_sliding) against K4 and against the
-     plain version at the flagship training step's
-     'subm' shapes (stem, L0, L1, L2, L3);
+ 10. sliding kernel: K9 (rowpad_conv_sliding) against K4 (equal bit for
+     bit) and against the plain version at the flagship training step's
+     'subm' shapes (stem, L0, L1, L2, L3), each with K9's time over K4's;
  11. sliding train: phase 6's step with `rowpad_conv.USE_SLIDING` set for
      this phase only, on fresh weights from the same seed: launch counts
      (K9 for the 17 'subm' forward convs), its warm-up loss against phase
@@ -81,9 +81,9 @@ input values of occupied sites that some occupied output reads,
 sum over their shapes of kernel ms times launches a frame (K2) or a
 training step (K4, K5); `library_ms`:
 for K8 its yardstick, `torch.searchsorted` over the target rows plus the
-found test; null for the others, since no single PyTorch call computes a
-sparse row-pad conv, its weight gradient, a rotated-box overlap, the stream
-VFE or the greedy walk.  The last line is {"ok": true, "device": {...}}.
+found test; for K1 a `scatter_reduce_` mean into a zeroed table; null for
+the others, since no single PyTorch call computes a sparse row-pad conv,
+its weight gradient, a rotated-box overlap or the greedy walk.  The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -601,6 +601,27 @@ def clustered_boxes(device, n=200, per=5, seed=2):
     return boxes.to(device)
 
 
+def vfe_scatter_mean(payload, lane, z, wstart, *, nz, ny, row_budget,
+                     out_dtype):
+    """K1's yardstick: a function that computes K1's per-voxel means with
+    one `scatter_reduce_(..., "mean", include_self=False)` of the in-window
+    points' features into a zeroed row-pad table (f32, its zeroing
+    included).  The flat indices, ((row * nz + z) * F + c) * B + lane, are
+    set-up and made here once."""
+    import torch
+
+    b, f = row_budget, payload.shape[1] - 1
+    t = torch.arange(payload.shape[0], device=payload.device)
+    row = torch.searchsorted(wstart.long(), t, right=True) - 1
+    ok = (t < wstart[ny]) & (lane >= 0) & (lane < b) & (z >= 0) & (z < nz)
+    base = ((row * nz + z.long()) * f * b + lane.long())[ok]
+    idx = (base[:, None] + torch.arange(f, device=payload.device) * b)
+    idx, vals = idx.reshape(-1), payload[ok, :f].float().reshape(-1)
+    n = ny * nz * f * b
+    return lambda: torch.zeros(n, device=payload.device).scatter_reduce_(
+        0, idx, vals, "mean", include_self=False).view(ny, nz * f, b)
+
+
 def masked_table(zmask, c, gen):
     """A random bf16 (ny, nz*c, B) table of a level, zero at the sites its
     zmask (ny, nz, B) marks empty, as the model's tables are."""
@@ -655,11 +676,21 @@ def check_kernels(model, pts, pv, device):
     if not err <= tol:
         raise AssertionError("stream_rowpad_feats disagrees with its plain "
                              "version")
+    # K1's yardstick: the same means by one scatter_reduce_ into a zeroed
+    # table, held to the plain version at K1's tolerance
+    lib_fn = vfe_scatter_mean(*args, **kw)
+    lib_err = max_abs(lib_fn(), ref)
+    lms = time_ms(lib_fn)
+    print(f"[kernels] stream_rowpad_feats yardstick scatter_reduce_ mean: "
+          f"max_abs_err {lib_err:.3g} (tol {tol:.3g}), {lms:.3f} ms")
+    if not lib_err <= tol:
+        raise AssertionError("scatter_reduce_ mean disagrees with "
+                             "stream_rowpad_feats' plain version")
     # bytes: the stream read once, the table written once; operations: one
     # add per payload element, one divide per output element (f32)
     rec["stream_rowpad_feats"] = with_bound(
-        dict(max_abs_err=err, ms=ms, plain_ms=pms), nbytes(*args, got),
-        args[0].numel() + got.numel(), "f32")
+        dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms),
+        nbytes(*args, got), args[0].numel() + got.numel(), "f32")
     rp_feats = got
 
     # K2 at every distinct conv of the frame.  Tolerance 2e-2 * max|ref|:
@@ -1200,6 +1231,15 @@ def check_pairwise(model, batch):
         print(f"[train-kernels] boxes_bev_pairwise head {hi}: {a.shape[0]} "
               f"pairs ({int(tgt['mask'].sum())} matched, {n_over} "
               f"overlapping)")
+    # the degenerate pairs: zero-size boxes (what center_head pairs at
+    # masked slots), identical boxes, boxes sharing an edge or a corner
+    a, b = degenerate_pairs(a.device)
+    for fn, plain in (overlap, iou):
+        got, ref = fn(a, b), plain(a, b)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs(got, ref))
+    print(f"[train-kernels] boxes_bev_pairwise, {a.shape[0]} degenerate "
+          f"pairs checked too")
     print(f"[train-kernels] boxes_bev_pairwise, both heads, overlap + iou: "
           f"max_abs_err {worst:.3g} (must be 0); overlap (what the step "
           f"launches) {ms:.3f} ms vs plain {pms:.3f} ms, iou {iou_ms:.3f} "
@@ -1209,6 +1249,31 @@ def check_pairwise(model, batch):
                              "version")
     return with_bound(dict(max_abs_err=worst, ms=ms, plain_ms=pms), n_bytes,
                       n_ops, "f32")
+
+
+def degenerate_pairs(device, n=32, seed=8):
+    """8 x n matched BEV pairs (N, 5) x (N, 5): zero-size boxes against
+    zero-size and real ones (both orders), identical boxes, a box against
+    its copy shifted by its length along its heading (a shared edge) and
+    also by its width across it (a shared corner), and a zero-width box
+    against a real one (both orders)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand((n, 5), generator=g) * torch.tensor(
+        [16.0, 16.0, 4.0, 4.0, 6.28]) + torch.tensor([-8, -8, 0.5, 0.5, -3.14])
+    b = a + torch.randn((n, 5), generator=g) * 0.3
+    b[:, 2:4] = b[:, 2:4].abs() + 0.1
+    zero = torch.zeros_like(a)
+    line = a.clone()
+    line[:, 2] = 0.0
+    h = a[:, 4]
+    edge = a.clone()
+    edge[:, :2] += a[:, 2:3] * torch.stack([torch.cos(h), torch.sin(h)], 1)
+    corner = edge.clone()
+    corner[:, :2] += a[:, 3:4] * torch.stack([-torch.sin(h), torch.cos(h)], 1)
+    return (torch.cat([zero, zero, a, a, a, a, line, a]).to(device),
+            torch.cat([zero, b, zero, a, edge, corner, a, line]).to(device))
 
 
 def timed_steps(tag, model, trainer, batch, device, want, timed=3):
@@ -1673,9 +1738,11 @@ def check_sliding(model, batch, device):
     """Phase 10: K9 against K4 and against its plain version (K4's in
     'subm') on the card, at the 'subm' shapes of the flagship training step
     (batch 2 stacked along the BEV-row axis): the stem (cin = the point
-    features), and one conv of each level.  K9 sums one fmaf at a time and
-    K4 on the tensor cores, so K9 is held to both the plain version and K4
-    at K4's own 2e-2 * max|ref| on bf16 weights.  Returns K9's record."""
+    features), and one conv of each level.  K9 and K4 sum the same bf16
+    products in f32 on the tensor cores in the same order, so K9 must equal
+    K4 bit for bit, and both lie within K4's 2e-2 * max|ref| of the plain
+    version on bf16 weights; each shape prints K9's time over K4's.
+    Returns K9's record."""
     import torch
     from detzero_tpu_torch.ops import rowpad_conv
 
@@ -1714,10 +1781,11 @@ def check_sliding(model, batch, device):
         torch.cuda.empty_cache()
         print(f"[sliding] rowpad_conv_sliding {rc['case']} in "
               f"{tuple(table.shape)}: max_abs_err {err:.3g} (tol {tol:.3g}), "
-              f"max abs diff from K4 {d4:.3g}, {ms:.3f} ms vs K4 {k4_ms:.3f} "
-              f"ms vs plain {pms:.3f} ms, bound {rc['bound_ms']:.4f} ms "
-              f"({rc['bound_by']})")
-        if not (err <= tol and d4 <= tol):
+              f"max abs diff from K4 {d4:.3g} (must be 0), {ms:.4f} ms vs K4 "
+              f"{k4_ms:.4f} "
+              f"ms (K9/K4 {ms / k4_ms:.3f}) vs plain {pms:.3f} ms, bound "
+              f"{rc['bound_ms']:.4f} ms ({rc['bound_by']})")
+        if not (err <= tol and d4 == 0.0):
             raise AssertionError(f"rowpad_conv_sliding {name} disagrees")
     rec = sum_cases(cases)
     rec["k4_diff"] = max(c["k4_diff"] for c in cases)

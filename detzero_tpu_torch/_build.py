@@ -46,9 +46,9 @@ SIGNATURES = {
     # ny_in, nz, cin, b_in, ny_out, out_nz, cout, b_out, down, z_stride,
     # rows_per_chunk, stream
     "dz_rowpad_conv_dw": [_P] * 6 + [_I] * 11 + [_P],
-    # table, nbr, w, zmask, out, ny, nz, cin, b_in, cout, b_out,
+    # table, nbr, wt, zmask, out, ny, nz, cin, cinp, b_in, cout, b_out,
     # rows_per_strip, stream
-    "dz_rowpad_conv_sliding": [_P] * 5 + [_I] * 7 + [_P],
+    "dz_rowpad_conv_sliding": [_P] * 5 + [_I] * 8 + [_P],
     # ptrs (3 a map: xq, x_in, out), dims (5 a map: ny_out, b_out, ny_in,
     # b_in, mode), n_maps, stream
     "dz_rowpad_nbr_maps": [_P, _P, _I, _P],

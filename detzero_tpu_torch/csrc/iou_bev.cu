@@ -70,8 +70,8 @@
 // row.  The clip keeps its ring in registers: every array index is a
 // compile-time constant, the emit at rank `run` is a select over the slots
 // it can reach, and the successor of slot k is a select between k + 1 and
-// slot 0.  The pairwise kernel (K6) clips every pair with the same code, one
-// thread a pair.
+// slot 0.  The pairwise kernel (K6) clips every pair with the same
+// arithmetic, a group of 8 lanes a pair (see there).
 #include "common.cuh"
 
 namespace {
@@ -96,19 +96,23 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// corner (tx, ty) of _corners' template, for cos c and sin s of the heading
+__device__ __forceinline__ void corner(const float* box, float c, float s,
+                                       float tx, float ty, float& x,
+                                       float& y) {
+  const float lx = mul(tx, mul(box[2], 0.5f)), ly = mul(ty, mul(box[3], 0.5f));
+  x = sub(add(box[0], mul(lx, c)), mul(ly, s));
+  y = add(add(box[1], mul(lx, s)), mul(ly, c));
+}
+
 // the 4 ccw corners of _corners: template (1,1), (-1,1), (-1,-1), (1,-1)
 __device__ __forceinline__ void corners(const float* box, float* cx,
                                         float* cy) {
   const float c = cosf(box[4]), s = sinf(box[4]);
-  const float hx = mul(box[2], 0.5f), hy = mul(box[3], 0.5f);
   const float tx[4] = {1.f, -1.f, -1.f, 1.f};
   const float ty[4] = {1.f, 1.f, -1.f, -1.f};
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float lx = mul(tx[k], hx), ly = mul(ty[k], hy);
-    cx[k] = sub(add(box[0], mul(lx, c)), mul(ly, s));
-    cy[k] = add(add(box[1], mul(lx, s)), mul(ly, c));
-  }
+  for (int k = 0; k < 4; ++k) corner(box, c, s, tx[k], ty[k], cx[k], cy[k]);
 }
 
 // B's edge vectors, as _clip_area takes them: (x2 - x1, y2 - y1)
@@ -442,25 +446,106 @@ __global__ void __launch_bounds__(kThreads)
 
 // Matched pairs (kernel K6, pallas_iou._launch_pairwise): pair i is
 // (boxes_a[i], boxes_b[i]); the intersection area, or with `iou` the IoU
-// with the same union clamp as above.
-__global__ void iou_bev_pairwise_kernel(const float* __restrict__ boxes_a,
-                                        const float* __restrict__ boxes_b,
-                                        float* __restrict__ out, int n,
-                                        int iou) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// with the same union clamp as above.  One pair's clip is a serial chain
+// (4 stages over a ring of 8 slots), so a thread a pair left a launch of
+// 1,000 pairs on 8 SMs, as long as one thread's chain.  Here a group of 8
+// lanes takes a pair (4 pairs a warp) and lane k owns slot k of the ring:
+// lanes 0-3 compute the corners of both boxes and B's edges; in each clip
+// stage every lane makes its slot's side test, in flag, crossing test and
+// crossing point, reading its successor's values by shuffle within the
+// group; the emit ranks are an exclusive prefix of the emit counts over the
+// group, and lane k of the next ring fetches the emit of rank k from the
+// lane that made it; the shoelace terms are formed a lane and summed in slot
+// order.  Every float operation is clip_area's, in its order, so the result
+// is the thread-a-pair kernel's to the bit.
+constexpr int kGroup = 8;          // lanes a pair: one a ring slot
+constexpr int kPairThreads = 64;   // 8 pairs a block
+
+__global__ void __launch_bounds__(kPairThreads)
+    iou_bev_pairwise_kernel(const float* __restrict__ boxes_a,
+                            const float* __restrict__ boxes_b,
+                            float* __restrict__ out, int n, int iou) {
+  static_assert(kCap == kGroup, "a lane a ring slot");
+  constexpr unsigned kAll = 0xffffffffu;
+  const int gid = blockIdx.x * kPairThreads + threadIdx.x;
+  const int i = gid / kGroup, k = gid % kGroup;
+  const bool live = i < n;  // lanes past n run along for the shuffles
   float a[5], b[5];
 #pragma unroll
   for (int q = 0; q < 5; ++q) {
-    a[q] = boxes_a[(size_t)i * 5 + q];
-    b[q] = boxes_b[(size_t)i * 5 + q];
+    a[q] = live ? boxes_a[(size_t)i * 5 + q] : 0.f;
+    b[q] = live ? boxes_b[(size_t)i * 5 + q] : 0.f;
   }
-  float ax[4], ay[4], bx[4], by[4], ex[4], ey[4];
-  corners(a, ax, ay);
-  corners(b, bx, by);
-  edges(bx, by, ex, ey);
-  const float inter = clip_area(ax, ay, bx, by, ex, ey);
-  out[i] = iou ? iou_of(inter, mul(a[2], a[3]), mul(b[2], b[3])) : inter;
+  auto lane_of = [&](float v, int src) {
+    return __shfl_sync(kAll, v, src, kGroup);
+  };
+  // slot k starts as A's corner k (k < 4); lane k < 4 also holds B's
+  // corner k and edge k
+  float px = 0.f, py = 0.f, pv = 0.f, bx = 0.f, by = 0.f;
+  if (k < 4) {
+    const float tx = k == 0 || k == 3 ? 1.f : -1.f, ty = k < 2 ? 1.f : -1.f;
+    corner(a, cosf(a[4]), sinf(a[4]), tx, ty, px, py);
+    corner(b, cosf(b[4]), sinf(b[4]), tx, ty, bx, by);
+    pv = 1.f;
+  }
+  const float ex = sub(lane_of(bx, (k + 1) % 4), bx);
+  const float ey = sub(lane_of(by, (k + 1) % 4), by);
+  const int next = (k + 1) % kGroup;
+  int n_ring = 4;
+  // the successor of slot k in the compacted ring of n_ring (nxt())
+  auto succ = [&](float v) {
+    const float first = lane_of(v, 0), after = lane_of(v, next);
+    return n_ring == k + 1 ? first : after;
+  };
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float d = side(lane_of(ex, e), lane_of(ey, e), lane_of(bx, e),
+                         lane_of(by, e), px, py);
+    const float in = d >= -kTol ? pv : 0.f;
+    const float nxk = succ(px), nyk = succ(py), ndk = succ(d);
+    const float nin = succ(in) * pv;
+    const float crossing = pv * fabsf(in - nin);
+    const float denom = sub(d, ndk);
+    const float safe = fabsf(denom) > kEps ? denom : 1.f;
+    const float t = __fdiv_rn(d, safe);
+    const float ix = add(px, mul(t, sub(nxk, px)));
+    const float iy = add(py, mul(t, sub(nyk, py)));
+    // emits: the vertex if inside, then the crossing point if the edge
+    // crosses; ranks from an exclusive prefix over the group
+    const int vin = in > 0.f, cnt = vin + (crossing > 0.f);
+    int incl = cnt;
+#pragma unroll
+    for (int dd = 1; dd < kGroup; dd <<= 1) {
+      const int v = __shfl_up_sync(kAll, incl, dd, kGroup);
+      if (k >= dd) incl += v;
+    }
+    const int excl = incl - cnt;
+    const int run = __shfl_sync(kAll, incl, kGroup - 1, kGroup);
+    // the lane whose emits hold rank k: the first whose inclusive count
+    // passes k (none when k >= run)
+    int src = 0;
+#pragma unroll
+    for (int l = 0; l < kGroup; ++l)
+      src += __shfl_sync(kAll, incl, l, kGroup) <= k;
+    const int sl = src < kGroup ? src : 0;
+    const float vx = lane_of(px, sl), vy = lane_of(py, sl);
+    const float cx = lane_of(ix, sl), cy = lane_of(iy, sl);
+    const int s_excl = __shfl_sync(kAll, excl, sl, kGroup);
+    const int s_vin = __shfl_sync(kAll, vin, sl, kGroup);
+    const bool vert = s_excl == k && s_vin != 0;
+    px = k < run ? (vert ? vx : cx) : 0.f;
+    py = k < run ? (vert ? vy : cy) : 0.f;
+    pv = k < run ? 1.f : 0.f;
+    n_ring = run;
+  }
+  // 0.5 |shoelace|, the terms summed in slot order
+  const float term = mul(pv, sub(mul(px, succ(py)), mul(succ(px), py)));
+  float area2 = 0.f;
+#pragma unroll
+  for (int l = 0; l < kGroup; ++l) area2 = add(area2, lane_of(term, l));
+  const float inter = n_ring >= 3 ? mul(fabsf(area2), 0.5f) : 0.f;
+  if (live && k == 0)
+    out[i] = iou ? iou_of(inter, mul(a[2], a[3]), mul(b[2], b[3])) : inter;
 }
 
 }  // namespace
@@ -468,9 +553,11 @@ __global__ void iou_bev_pairwise_kernel(const float* __restrict__ boxes_a,
 DZ_EXPORT int dz_iou_bev_pairwise(const void* boxes_a, const void* boxes_b,
                                   void* out, int n, int iou, void* stream) {
   if (n == 0) return dz_launch_status();
-  const int threads = 128;
-  iou_bev_pairwise_kernel<<<(n + threads - 1) / threads, threads, 0,
-                            (cudaStream_t)stream>>>(
+  const long long lanes = (long long)n * kGroup;
+  if (lanes > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  iou_bev_pairwise_kernel<<<(unsigned)((lanes + kPairThreads - 1) /
+                                       kPairThreads),
+                            kPairThreads, 0, (cudaStream_t)stream>>>(
       (const float*)boxes_a, (const float*)boxes_b, (float*)out, n, iou);
   return dz_launch_status();
 }

@@ -41,7 +41,10 @@
 //   3. for each tile of 128 listed sites (16 per warp) it looks up the 9 BEV
 //      ranks and 3 input planes of every site once and ORs the taps some
 //      site has into a mask; then, in rounds of as many of those taps as
-//      fill 128 staged columns (8 taps at cin <= 16, one at cin 128), it
+//      fill 128 staged columns (K2: all of each tap's channels, 8 taps at
+//      cin <= 16, one at cin 128; K4: 16 channels of 8 taps, channel chunks
+//      outermost and the taps by source row, then z tap, then x, the order
+//      in which K9 sums, so that the two agree bit for bit), it
 //      stages A = the sites' inputs at the round's taps (taps*cin columns,
 //      gathered by rank tap by tap with the tap's address worked out once,
 //      zero where absent, cin padded to 16; only the rows a busy warp
@@ -174,6 +177,20 @@ int launch_f32(const void* table, const void* nbr, const void* w,
 // bf16 K4 and K2: occupied sites only, products on the tensor cores
 // ---------------------------------------------------------------------------
 
+// The bit of tap k = t * 9 + j in a tile's tap mask, whose ascending order
+// is the order the taps are summed in: K2 takes k itself; K4 takes the
+// source row first, r = (j / 3) * 9 + t * 3 + j % 3, which is K9's order
+// (csrc/rowpad_conv_sliding.cu), so that K4 and K9 sum alike.
+template <bool kRowsFirst>
+__device__ __forceinline__ int tap_bit(int t, int j) {
+  return kRowsFirst ? (j / 3) * 9 + t * 3 + j % 3 : t * 9 + j;
+}
+// the tap k of a mask bit
+template <bool kRowsFirst>
+__device__ __forceinline__ int bit_tap(int b) {
+  return kRowsFirst ? (b % 9 / 3) * 9 + (b / 9) * 3 + b % 3 : b;
+}
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileM = 16 * kWarps;  // sites per tile, 16 per warp
@@ -265,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, kNT >= 16 ? 1
           rank = v;
           for (int t = 0; t < 3; ++t)
             if (input_plane<kMode>(site / b_out, t, z_stride, nz) >= 0)
-              mask |= 1u << (t * 9 + j);
+              mask |= 1u << tap_bit<!kEpilogue>(t, j);
         }
       }
       rk[e] = rank;
@@ -287,8 +304,10 @@ __global__ void __launch_bounds__(kThreads, kNT >= 16 ? 1
       acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
     const bool busy = warp * 16 < ns;  // this warp has sites
 
-    for (int c0 = 0; c0 < cin; c0 += kMaxK) {  // one pass unless cin > 128
-      const int kc = min(kMaxK, cin - c0);
+    // channel chunks of kcp: K2 one pass unless cin > 128, K4 16 channels
+    // a pass, as K9 stages them
+    for (int c0 = 0; c0 < cin; c0 += kcp) {
+      const int kc = min(kcp, cin - c0);
       // rounds of up to round_taps of the taps some site has, in order;
       // a round's q-th tap is bit nth_bit(round, q)
       for (unsigned rest = taps; rest != 0u;) {
@@ -301,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, kNT >= 16 ? 1
         if (staged) {
           unsigned left = round;
           for (int q = 0; q < nq; ++q, left &= left - 1u) {
-            const int k = __ffs(left) - 1;
+            const int k = bit_tap<!kEpilogue>(__ffs(left) - 1);
             const int t = k / 9, j = k % 9;
             const int rank = rk[j * kTileM + sm], plane = pl[t * kTileM + sm];
             const bool ok = rank >= 0 && plane >= 0;
@@ -329,7 +348,7 @@ __global__ void __launch_bounds__(kThreads, kNT >= 16 ? 1
         for (int e = tid; e < pairs * (nco / 8); e += kThreads) {
           const int qc = e % pairs, n0 = 8 * (e / pairs);
           const int q = qc / (kcp / 2), c = 2 * (qc % (kcp / 2));
-          const int k = nth_bit(round, q);
+          const int k = bit_tap<!kEpilogue>(nth_bit(round, q));
           const bf16* wk = w + ((size_t)k * cin + c0 + c) * cout + co0 + n0;
           uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
           if (c < kc) lo = load8(wk);
@@ -399,8 +418,9 @@ int launch_nt(const void* table, const void* nbr, const void* w,
               const void* res, void* out, int ny_in, int nz, int cin,
               int b_in, int ny_out, int out_nz, int cout, int b_out,
               int z_stride, int relu, void* stream) {
-  // a round stages as many whole taps as fit in kMaxK columns
-  const int kcp = (min(cin, kMaxK) + 15) / 16 * 16;
+  // a round stages as many whole taps as fit in kMaxK columns: K2 all the
+  // channels of each (up to 128), K4 16 channels of each
+  const int kcp = kEpilogue ? (min(cin, kMaxK) + 15) / 16 * 16 : 16;
   const int round_taps = max(1, kMaxK / kcp);
   const size_t smem =
       mma_smem(round_taps * kcp, min(cout, kMaxN), out_nz * b_out);

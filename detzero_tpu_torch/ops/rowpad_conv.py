@@ -9,10 +9,11 @@
     both through one `_conv_kernel`;
   * kernel K5, the conv's weight gradient (`rowpad_conv_dw`, replaces
     `pallas_pillar.rowpad_conv_dw`, `csrc/rowpad_conv_dw.cu`);
-  * kernel K9, K4's 'subm' conv with z stride 1 streaming each input row
-    once (`rowpad_conv_sliding`, replaces `pallas_pillar.rowpad_conv_sliding`,
-    `csrc/rowpad_conv_sliding.cu`); bf16 only, within K4's tolerance of
-    K4 (K9 sums a fmaf at a time, K4 on the tensor cores);
+  * kernel K9, K4's 'subm' conv with z stride 1 that streams its source
+    rows through shared memory (`rowpad_conv_sliding`, replaces
+    `pallas_pillar.rowpad_conv_sliding`, `csrc/rowpad_conv_sliding.cu`);
+    bf16 only, on the tensor cores in K4's order of summation, so equal to
+    K4 bit for bit;
   * `RowpadConv`, the training conv with the scatter-free backward of
     `pallas_pillar.make_conv_op`: the input gradient is K4 with the flipped
     weight ('up' mode for a strided conv), the weight gradient is K5.  With
@@ -21,10 +22,11 @@
 
 On the flagship scene about one voxel in fifty is occupied, so what bounds
 the conv kernels on the H100 is writing the output table, not the
-arithmetic.  K2, the bf16 K4 and K5 compact each row's occupied sites in
-shared memory, gather their taps by rank and run the products on the
-tensor cores (`mma.sync` bf16, f32 sums); the float32 K4 keeps one thread
-per site on the CUDA cores.  See the sources.
+arithmetic.  K2, the bf16 K4, K5 and K9 compact each row's occupied sites
+in shared memory and run the products on the tensor cores (`mma.sync`
+bf16, f32 sums): K2, K4 and K5 gather the taps by rank from device memory,
+K9 from source-row slabs it copies into shared memory with `cp.async`; the
+float32 K4 keeps one thread per site on the CUDA cores.  See the sources.
 
 Tensor contract (the reference's, with the spconv-order weight):
   table    (ny_in, nz*cin, B_in)
@@ -69,8 +71,12 @@ _MODES = {"subm": 0, "down": 1, "up": 2}
 # to hide the gathers' latency (each chunk adds a (27, cin, cout) f32
 # partial sum to the workspace)
 DW_ROWS_PER_CHUNK = 3
-# consecutive output rows one K9 block walks (two halo rows per strip)
-SLIDING_ROWS_PER_STRIP = 16
+# consecutive output rows one K9 block walks (one: the flagship's L3 has
+# only 376 rows, and a block per row keeps the card full)
+SLIDING_ROWS_PER_STRIP = 1
+# K9's transposed weight pads cin to a multiple of this: the 16 input
+# channels a kernel stage copies
+SLIDING_CIN_ALIGN = 16
 # RowpadConv's forward 'subm' conv with z stride 1 runs K9 instead of K4;
 # read at call time
 USE_SLIDING = os.environ.get("DETZERO_SLIDING_CONV", "0") == "1"
@@ -210,6 +216,16 @@ def _check_train_args(name, table, nbr, nz, cin, mode, z_stride):
                          f"mode={mode!r}")
 
 
+def sliding_weight(weight, cin, cout):
+    """K9's weight layout: (27, cin, cout) -> (27, cout, cinp) bf16, each
+    tap's matrix transposed so that a kernel stage copies an output
+    channel's input channels as one run, zero past cin up to cinp, the
+    multiple of SLIDING_CIN_ALIGN."""
+    cinp = -(-cin // SLIDING_CIN_ALIGN) * SLIDING_CIN_ALIGN
+    wt = weight.to(torch.bfloat16).reshape(27, cin, cout).transpose(1, 2)
+    return F.pad(wt, (0, cinp - cin)).contiguous()
+
+
 def rowpad_conv_sliding(table, nbr, weight, zmask=None, *, nz, cin, cout):
     """Kernel K9 on CUDA tensors: K4's 'subm' conv with z stride 1, bf16
     tables only, returning bf16; on CPU tensors K4's plain version in
@@ -232,8 +248,8 @@ def rowpad_conv_sliding(table, nbr, weight, zmask=None, *, nz, cin, cout):
                          f"multiples of 16, got {cout}")
     table = table.contiguous()
     nbr = nbr.to(torch.int32).contiguous()
-    w = weight.to(torch.bfloat16).contiguous()
-    tensors = [table, nbr, w]
+    wt = sliding_weight(weight, cin, cout)
+    tensors = [table, nbr, wt]
     zm = None
     if zmask is not None:
         zm = zmask[:, :nz].to(torch.uint8).contiguous()
@@ -245,9 +261,9 @@ def rowpad_conv_sliding(table, nbr, weight, zmask=None, *, nz, cin, cout):
     out = torch.empty((ny, nz * cout, b_out), dtype=torch.bfloat16,
                       device=table.device)
     rc = _build.lib().dz_rowpad_conv_sliding(
-        table.data_ptr(), nbr.data_ptr(), w.data_ptr(),
+        table.data_ptr(), nbr.data_ptr(), wt.data_ptr(),
         zm.data_ptr() if zm is not None else None, out.data_ptr(), ny, nz,
-        cin, b_in, cout, b_out, SLIDING_ROWS_PER_STRIP,
+        cin, wt.shape[2], b_in, cout, b_out, SLIDING_ROWS_PER_STRIP,
         _build.stream_ptr(table.device))
     global SLIDING_LAUNCHES
     SLIDING_LAUNCHES += 1

@@ -156,3 +156,61 @@ def test_rowpad_conv_dw_plain_vs_pallas_cin5(scene, mode):  # noqa: F811
     assert got.shape == ref.shape == (27, 5, 16)
     assert np.abs(ref).max() > 0
     assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("cin,cout", [(5, 16), (16, 16), (32, 32), (40, 48),
+                                      (128, 128)])
+def test_sliding_weight_layout(cin, cout):
+    """K9's weight, (27, cout, cinp) bf16, against its plain form: each
+    tap's (cin, cout) matrix transposed, rounded to bf16, zero from cin up
+    to cinp, the multiple of 16 at or above cin."""
+    w = np.random.RandomState(cin + cout).randn(27, cin, cout).astype(
+        np.float32)
+    got = rc.sliding_weight(torch.from_numpy(w), cin, cout)
+    cinp = -(-cin // 16) * 16
+    ref = np.zeros((27, cout, cinp), np.float32)
+    ref[:, :, :cin] = w.transpose(0, 2, 1)
+    ref = torch.from_numpy(ref).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.is_contiguous()
+    assert got.shape == (27, cout, cinp) and cinp % rc.SLIDING_CIN_ALIGN == 0
+    assert torch.equal(got, ref)
+
+
+def test_vfe_scatter_mean_yardstick(smoke):
+    """K1's yardstick in chip_smoke.py (one scatter_reduce_ mean into a
+    zeroed table) against K1's plain version on the tiny cloud's stream:
+    within K1's tolerance, 2^-7 * max|ref| at a bf16 reference."""
+    from detzero_tpu_torch.ops import stream_vfe
+
+    pts, pv = smoke.entry_points(2048, seed=0)
+    pts[..., :2] *= 6.0 / 70.0
+    model = smoke.build_model(smoke.TINY_CFG, smoke.TINY_KW, torch.float32,
+                              "cpu")
+    s = model.build_table(torch.from_numpy(pts[0]),
+                          torch.from_numpy(pv[0]))["stream"]
+    args = (s["payload"], s["lane"], s["z"], s["wstart"])
+    for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(nz=model.grid_zyx[0], ny=model.grid_zyx[1],
+                  row_budget=model.row_budget, out_dtype=dtype)
+        ref = stream_vfe.stream_rowpad_feats_plain(*args, **kw).float()
+        got = smoke.vfe_scatter_mean(*args, **kw)()
+        assert got.shape == ref.shape and int((ref != 0).sum()) > 1000
+        tol = (2 ** -7 if dtype == torch.bfloat16 else 1e-6) \
+            * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol
+
+
+def test_degenerate_pairs_plain(smoke):
+    """The degenerate matched pairs that chip_smoke.py and the K6 `cuda`
+    tests hold K6 to, on the plain clip: a zero-size A covers nothing, an
+    identical pair overlaps by its own area, B of zero size leaves A's
+    quad (the clip's on-edge rule), all finite."""
+    from detzero_tpu_torch.ops import iou_bev
+
+    a, b = smoke.degenerate_pairs("cpu")
+    inter = iou_bev.boxes_overlap_bev_pairwise_plain(a, b)
+    area = a[:, 2] * a[:, 3]
+    assert a.shape == b.shape == (256, 5) and bool(torch.isfinite(inter).all())
+    assert not bool(inter[:64].any())
+    assert torch.allclose(inter[64:128], area[64:128], rtol=1e-4)
+    assert torch.allclose(inter[96:128], area[96:128], rtol=1e-4)

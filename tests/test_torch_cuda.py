@@ -6,6 +6,9 @@ Marked `cuda`: skipped where torch finds no CUDA device.  On a machine with
 a card:  python -m pytest tests/test_torch_cuda.py -q
 chip_smoke.py makes the same checks at the flagship path's shapes."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -197,26 +200,60 @@ def test_rowpad_conv_dw_kernel(plans, dev, mode, cin, cout, edge):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("kind", ["overlap", "iou"])
-def test_pairwise_iou_kernel(dev, kind):
-    """K6 against its plain version: every operation rounded alike, so
-    1e-5 absolute covers sin/cos differing in the last ulp."""
-    from detzero_tpu_torch.ops import iou_bev
+def _smoke():
+    """chip_smoke.py at the root of the checkout, as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    g = torch.Generator().manual_seed(5)
-    a = torch.rand((500, 5), generator=g) * torch.tensor(
+
+def _pair_boxes(n, seed):
+    """n matched pairs (n, 5) x (n, 5): b jittered from a, so most pairs
+    overlap."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand((n, 5), generator=g) * torch.tensor(
         [16.0, 16.0, 4.0, 4.0, 6.28]) + torch.tensor([-8, -8, 0.5, 0.5, -3.14])
-    b = a + torch.randn((500, 5), generator=g) * torch.tensor(
+    b = a + torch.randn((n, 5), generator=g) * torch.tensor(
         [0.5, 0.5, 0.3, 0.3, 0.3])
     b[:, 2:4] = b[:, 2:4].abs() + 0.1
+    return a, b
+
+
+# K6's pair sets: random jittered pairs at 500 (a head's batch of slots),
+# 1 (one pair), 37 and 1001 (no multiple of the 4 pairs a warp, 8 a block);
+# the degenerate pairs
+PAIR_CASES = ["500", "1", "37", "1001", "degenerate"]
+
+
+@pytest.mark.parametrize("case", PAIR_CASES)
+@pytest.mark.parametrize("kind", ["overlap", "iou"])
+def test_pairwise_iou_kernel(dev, kind, case):
+    """K6 against its plain version: every operation rounded alike, so
+    1e-5 absolute covers sin/cos differing in the last ulp; two launches
+    count two."""
+    from detzero_tpu_torch.ops import iou_bev
+
+    a, b = (_smoke().degenerate_pairs("cpu") if case == "degenerate"
+            else _pair_boxes(int(case), 5))
     fn, plain = ((iou_bev.boxes_iou_bev_pairwise,
                   iou_bev.boxes_iou_bev_pairwise_plain) if kind == "iou" else
                  (iou_bev.boxes_overlap_bev_pairwise,
                   iou_bev.boxes_overlap_bev_pairwise_plain))
     ref = plain(a.to(dev), b.to(dev))
+    n0 = iou_bev.PAIRWISE_LAUNCHES
     got = fn(a.to(dev), b.to(dev))
+    again = fn(a.to(dev), b.to(dev))
     torch.cuda.synchronize()
-    assert int((ref > 0).sum()) > 250
+    assert iou_bev.PAIRWISE_LAUNCHES == n0 + 2
+    assert got.shape == ref.shape == (a.shape[0],)
+    assert torch.equal(got, again)
+    if case == "500":
+        assert int((ref > 0).sum()) > 250
+    if case == "degenerate":
+        assert not bool(ref[:64].any())      # a zero-size A covers nothing
+        assert bool((ref[96:128] > 0).all())  # identical boxes
     assert (got - ref).abs().max() <= 1e-5
 
 
@@ -288,22 +325,52 @@ def test_rowpad_nbr_kernel(tiny, dev, row_budget):
     assert rowpad_nbr.LAUNCHES == n0 + 3
 
 
-@pytest.mark.parametrize("cin,cout", [(5, 16), (128, 32)])
-def test_rowpad_conv_sliding_kernel(tiny, dev, cin, cout):
+# K9's cases: (cin, cout, plan edge or level, rows a block walks).  cin
+# 128 -> cout 128 is the flagship's L3 width (all of cout in one block);
+# "rows" has an empty row and a full one; "stacked" puts two samples'
+# tables on top of each other (128 rows), so a 5-row strip crosses from one
+# into the next at rows 60-64; ny 64 is no multiple of 5; "L1" to "L3" are
+# the tiny plan's deeper levels (nz 4, 2, 1); "all" passes no zmask;
+# "deep" is a synthetic level as deep as the flagship's L0 (nz 40, one
+# site in fifty occupied, random maps), where the kernel takes one stage
+# buffer beside a second block (cin 16) or one block an SM (cin 64)
+SLIDING_CASES = [(5, 16, "plan", 1), (128, 32, "plan", 1),
+                 (128, 128, "plan", 1), (16, 16, "rows", 5),
+                 (32, 32, "stacked", 5), (64, 64, "budget8", 16),
+                 (16, 16, "plan", 16), (32, 32, "L1", 1), (64, 64, "L2", 3),
+                 (128, 128, "L3", 1), (16, 32, "all", 2), (16, 16, "deep", 1),
+                 (64, 64, "deep", 2)]
+
+
+@pytest.mark.parametrize("cin,cout,edge,strip", SLIDING_CASES)
+def test_rowpad_conv_sliding_kernel(plans, dev, monkeypatch, cin, cout, edge,
+                                    strip):
     """K9 against the plain version within 2e-2 * max|ref|, K4's bound, and
-    against K4 on the same bf16 inputs within that bound too (K9 sums one
-    fmaf at a time, K4 on the tensor cores); cin 128 fills K9's shared
-    memory as at the flagship's L3."""
+    equal to K4 on the same bf16 inputs: both sum the same bf16 products in
+    f32 on the tensor cores, in the same order."""
     from detzero_tpu_torch.ops import rowpad_conv
 
-    *_, plan = tiny
+    monkeypatch.setattr(rowpad_conv, "SLIDING_ROWS_PER_STRIP", strip)
     g = torch.Generator(device=dev).manual_seed(7)
-    zm = plan[0]["rp_zmask"]
+    level = int(edge[1]) if edge.startswith("L") else 0
+    lvl = plans[edge if edge in plans else "plan"][level]
+    zm, nbr = lvl["rp_zmask"], lvl["rp_nbr"]
+    if edge == "deep":
+        zm = torch.rand((8, 40, 128), generator=g, device=dev) < 0.02
+        nbr = torch.randint(-1, 160, (8, 16, 128), generator=g, device=dev,
+                            dtype=torch.int32)
     table = _masked_table(zm, cin, g)
+    if edge == "stacked":
+        table = torch.cat([table, _masked_table(zm, cin, g)])
+        zm, nbr = torch.cat([zm, zm]), torch.cat([nbr, nbr])
+    if edge == "rows":
+        assert not bool(zm[1].any()) and bool(zm[2].all())
     w = (torch.randn((27, cin, cout), generator=g, device=dev)
          * (27 * cin) ** -0.5).bfloat16()
     kw = dict(nz=zm.shape[1], cin=cin, cout=cout)
-    a = (table, plan[0]["rp_nbr"], w, zm)
+    a = (table, nbr, w, zm)
+    if edge == "all":       # no zmask: every site is computed
+        a = (_masked_table(torch.ones_like(zm), cin, g), nbr, w, None)
     n0 = rowpad_conv.SLIDING_LAUNCHES
     got = rowpad_conv.rowpad_conv_sliding(*a, **kw)
     k4 = rowpad_conv.rowpad_conv(*a, **kw)
@@ -314,9 +381,12 @@ def test_rowpad_conv_sliding_kernel(tiny, dev, cin, cout):
     assert float(ref.abs().max()) > 0
     tol = 2e-2 * ref.abs().max()
     assert (got.float() - ref).abs().max() <= tol
-    assert (got.float() - k4.float()).abs().max() <= tol
+    assert torch.equal(got, k4)
+    if a[3] is not None:    # empty sites are exact zeros
+        empty = ~zm[:, :, None, :].expand(-1, -1, cout, -1).reshape(got.shape)
+        assert not bool(got[empty].any())
     with pytest.raises(ValueError, match="bf16"):
-        rowpad_conv.rowpad_conv_sliding(table.float(), *a[1:], **kw)
+        rowpad_conv.rowpad_conv_sliding(a[0].float(), *a[1:], **kw)
     assert rowpad_conv.SLIDING_LAUNCHES == n0 + 1
 
 
@@ -617,7 +687,9 @@ def test_tiny_sliding_train_loss(dev, monkeypatch):
     geometry with `rowpad_conv.USE_SLIDING`: its 17 'subm' forward convs
     launch K9 and the other 22 convs K4; the loss and gradient norm are
     finite, and the loss is within 1e-3 relative of the same model's loss
-    through K4 alone (K9 and K4 agree within K4's own bound)."""
+    through K4 alone (K9 equals K4 bit for bit, so the two are equal; this
+    model's loss moves by percents under one-ulp changes of a conv's
+    output, so a K9 that summed in another order would fail here)."""
     from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
     from detzero_tpu_torch.ops import rowpad_conv, rowpad_nbr
 
