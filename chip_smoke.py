@@ -58,7 +58,25 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      this phase only, on fresh weights from the same seed: launch counts
      (K9 for the 17 'subm' forward convs), its warm-up loss against phase
      6's, ms/step over 3 timed steps after the warm-up step, stage times,
-     peak memory.
+     peak memory;
+ 12. train_det: the detection training entry point
+     (`detzero_tpu_torch.tools.train_det.main`) on a Waymo-layout tree
+     written to a temporary directory: one sequence of 8 frames of 160,000
+     points (x, y, z, intensity, elongation, NLZ -1) from the port's
+     SyntheticWaymoDataset.generate_scene with 48 objects, seen from an
+     ego that moves 1 m a frame, the info pkl with 9-wide GT boxes (the
+     objects' velocities from the generator's motion), a GT database of
+     the crops, and a yaml on configs/det_model_cfgs/centerpoint_5sweeps
+     .yaml (5 sweeps, 200,000-point budget, capacities 150k/75k/40k/20k,
+     batch 2, adam_onecycle, all four augmentors).  The loader alone over
+     one epoch (4 batches); on its first batch K1 at F = 6 and the stem
+     conv 6 -> 16 of K4 and K5 against their plain versions, and the
+     pillars kept at each level against the capacities; then main() to
+     step 4, again to step 6 (it resumes at 4), and to step 8 under
+     torch.profiler: the launches of every run (the one-stage step's,
+     each step), finite metrics.jsonl lines for steps 1-6, the newest
+     checkpoint equal to the live model, fit's ms/step over the resumed
+     steps, its idle share, peak memory, checkpoint bytes and save ms.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -71,7 +89,7 @@ Per-stage times are CUDA events that the model's and the trainer's
 events around calls queued behind a spin kernel (`time_ms`), so they read
 the card's time even where a wrapper's host cost outlasts its kernel.
 The line before the card's line carries every kernel's numbers as JSON:
-launches summed over the four counted paths, each path's own in
+launches summed over the counted paths, each path's own in
 `launches_by_path`; `bound_ms`, the least time the card could take for the
 timed work (the larger of its bytes, each input read once and each output
 written once, over 3.35 TB/s, and its operations over the card's peak for
@@ -88,12 +106,17 @@ its weight gradient, a rotated-box overlap or the greedy walk.  The last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
+
+REPO = Path(__file__).resolve().parent
 
 FLAGSHIP_CFG = {
     "WITH_VELOCITY": True, "WITH_IOU": True,
@@ -648,7 +671,7 @@ def check_kernels(model, pts, pv, device):
     """Phase 3: every kernel of the path against its plain version on the
     card, on the flagship frame's own tensors.  Returns {name: record}."""
     import torch
-    from detzero_tpu_torch.ops import iou_bev, nms, rowpad_conv, stream_vfe
+    from detzero_tpu_torch.ops import iou_bev, nms, rowpad_conv
 
     rec = {}
     gen = torch.Generator(device=device).manual_seed(1)
@@ -656,42 +679,8 @@ def check_kernels(model, pts, pv, device):
     v = torch.from_numpy(pv[0]).to(device)
     table = model.build_table(p, v)
     plan = model.build_plan(table)
-    s = table["stream"]
-    nz, ny = model.grid_zyx[0], model.grid_zyx[1]
-    kw = dict(nz=nz, ny=ny, row_budget=model.row_budget,
-              out_dtype=torch.bfloat16)
-    args = (s["payload"], s["lane"], s["z"], s["wstart"])
-
-    # K1: bf16 means from f32 sums; the sums agree to f32 rounding, so the
-    # stored means agree to one bf16 ulp: tolerance 2^-7 * max|ref|
-    ref = stream_vfe.stream_rowpad_feats_plain(*args, **kw)
-    got = stream_vfe.stream_rowpad_feats(*args, **kw)
-    torch.cuda.synchronize()
-    err, tol = max_abs(got, ref), 2 ** -7 * float(ref.float().abs().max())
-    ms = time_ms(lambda: stream_vfe.stream_rowpad_feats(*args, **kw))
-    pms = time_ms(lambda: stream_vfe.stream_rowpad_feats_plain(*args, **kw),
-                  iters=3)
-    print(f"[kernels] stream_rowpad_feats {tuple(got.shape)}: max_abs_err "
-          f"{err:.3g} (tol {tol:.3g}), {ms:.3f} ms vs plain {pms:.3f} ms")
-    if not err <= tol:
-        raise AssertionError("stream_rowpad_feats disagrees with its plain "
-                             "version")
-    # K1's yardstick: the same means by one scatter_reduce_ into a zeroed
-    # table, held to the plain version at K1's tolerance
-    lib_fn = vfe_scatter_mean(*args, **kw)
-    lib_err = max_abs(lib_fn(), ref)
-    lms = time_ms(lib_fn)
-    print(f"[kernels] stream_rowpad_feats yardstick scatter_reduce_ mean: "
-          f"max_abs_err {lib_err:.3g} (tol {tol:.3g}), {lms:.3f} ms")
-    if not lib_err <= tol:
-        raise AssertionError("scatter_reduce_ mean disagrees with "
-                             "stream_rowpad_feats' plain version")
-    # bytes: the stream read once, the table written once; operations: one
-    # add per payload element, one divide per output element (f32)
-    rec["stream_rowpad_feats"] = with_bound(
-        dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms),
-        nbytes(*args, got), args[0].numel() + got.numel(), "f32")
-    rp_feats = got
+    nz = model.grid_zyx[0]
+    rec["stream_rowpad_feats"], rp_feats = check_vfe(model, table, "kernels")
 
     # K2 at every distinct conv of the frame.  Tolerance 2e-2 * max|ref|:
     # both sides read the same bf16 inputs and round to bf16 once; only
@@ -772,6 +761,49 @@ def check_kernels(model, pts, pv, device):
     rec["nms_walk"]["clustered"] = check_nms(boxes, valid, 0.7,
                                              "1000 clustered boxes")
     return rec
+
+
+def check_vfe(model, table, tag):
+    """K1 against its plain version (and its scatter_reduce_ yardstick) on
+    one sample's pillar table.  Returns (record, K1's bf16 table)."""
+    import torch
+    from detzero_tpu_torch.ops import stream_vfe
+
+    s = table["stream"]
+    kw = dict(nz=model.grid_zyx[0], ny=model.grid_zyx[1],
+              row_budget=model.row_budget, out_dtype=torch.bfloat16)
+    args = (s["payload"], s["lane"], s["z"], s["wstart"])
+    f = args[0].shape[1] - 1
+    # K1: bf16 means from f32 sums; the sums agree to f32 rounding, so the
+    # stored means agree to one bf16 ulp: tolerance 2^-7 * max|ref|
+    ref = stream_vfe.stream_rowpad_feats_plain(*args, **kw)
+    got = stream_vfe.stream_rowpad_feats(*args, **kw)
+    torch.cuda.synchronize()
+    err, tol = max_abs(got, ref), 2 ** -7 * float(ref.float().abs().max())
+    ms = time_ms(lambda: stream_vfe.stream_rowpad_feats(*args, **kw))
+    pms = time_ms(lambda: stream_vfe.stream_rowpad_feats_plain(*args, **kw),
+                  iters=3)
+    print(f"[{tag}] stream_rowpad_feats F={f} {tuple(got.shape)}: "
+          f"max_abs_err {err:.3g} (tol {tol:.3g}), {ms:.3f} ms vs plain "
+          f"{pms:.3f} ms")
+    if not err <= tol:
+        raise AssertionError("stream_rowpad_feats disagrees with its plain "
+                             "version")
+    # K1's yardstick: the same means by one scatter_reduce_ into a zeroed
+    # table, held to the plain version at K1's tolerance
+    lib_fn = vfe_scatter_mean(*args, **kw)
+    lib_err = max_abs(lib_fn(), ref)
+    lms = time_ms(lib_fn)
+    print(f"[{tag}] stream_rowpad_feats yardstick scatter_reduce_ mean: "
+          f"max_abs_err {lib_err:.3g} (tol {tol:.3g}), {lms:.3f} ms")
+    if not lib_err <= tol:
+        raise AssertionError("scatter_reduce_ mean disagrees with "
+                             "stream_rowpad_feats' plain version")
+    # bytes: the stream read once, the table written once; operations: one
+    # add per payload element, one divide per output element (f32)
+    return with_bound(
+        dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms),
+        nbytes(*args, got), args[0].numel() + got.numel(), "f32"), got
 
 
 def frame_nms_input(model, p, v):
@@ -1082,11 +1114,12 @@ def check_tiny(device):
     print(f"[predict] tiny geometry card vs CPU: worst err/tol {worst:.3f}")
 
 
-def check_train_kernels(model, batch, device):
+def check_train_kernels(model, batch, device, stem_only=False, tag=None):
     """Phase 5: K4 and K5 against their plain versions on the card, at every
-    distinct conv of the flagship training step: the batch's tables and
-    maps stacked along the BEV-row axis, as CenterPoint.loss runs them.
-    Returns {name: record}."""
+    distinct conv of the flagship training step (the stem alone with
+    `stem_only`): the batch's tables and maps stacked along the BEV-row
+    axis, as CenterPoint.loss runs them.  Returns {name: record}."""
+    tag = tag or "train-kernels"
     import torch
     from detzero_tpu_torch.ops import rowpad_conv
 
@@ -1125,7 +1158,7 @@ def check_train_kernels(model, batch, device):
         rc = with_bound(dict(case=name, launches=n, max_abs_err=err, tol=tol,
                              ms=ms, plain_ms=pms), *work, "bf16")
         torch.cuda.empty_cache()
-        print(f"[train-kernels] rowpad_conv {name} in {tuple(table.shape)} "
+        print(f"[{tag}] rowpad_conv {name} in {tuple(table.shape)} "
               f"out {tuple(got.shape)}, {n} a step: max_abs_err {err:.3g} "
               f"(tol {tol:.3g}), {ms:.4f} ms vs plain {pms:.3f} ms, bound "
               f"{rc['bound_ms']:.4f} ms ({rc['bound_by']})")
@@ -1158,7 +1191,7 @@ def check_train_kernels(model, batch, device):
         rc = with_bound(dict(case=name, launches=n, max_abs_err=err, tol=tol,
                              ms=ms, plain_ms=pms), *work, "bf16")
         torch.cuda.empty_cache()
-        print(f"[train-kernels] rowpad_conv_dw {name} table "
+        print(f"[{tag}] rowpad_conv_dw {name} table "
               f"{tuple(table.shape)} d_out {tuple(d_out.shape)}, {n} a "
               f"step: max_abs_err {err:.3g} (tol {tol:.3g}), {ms:.4f} ms vs "
               f"plain {pms:.3f} ms, bound {rc['bound_ms']:.4f} ms "
@@ -1170,12 +1203,13 @@ def check_train_kernels(model, batch, device):
                                  f"two launches")
         return rc
 
+    n = 1 if stem_only else None
     rec = {"rowpad_conv": sum_cases(
-               [conv_case(*c) for c in conv_shapes("K4", stem_cin)]),
+               [conv_case(*c) for c in conv_shapes("K4", stem_cin)[:n]]),
            "rowpad_conv_dw": sum_cases(
-               [dw_case(*c) for c in conv_shapes("K5", stem_cin)])}
+               [dw_case(*c) for c in conv_shapes("K5", stem_cin)[:n]])}
     for name in rec:
-        print(f"[train-kernels] {name} launch-weighted: "
+        print(f"[{tag}] {name} launch-weighted: "
               f"{rec[name]['weighted_ms']:.3f} ms a step (bound "
               f"{rec[name]['weighted_bound_ms']:.3f} ms)")
     return rec
@@ -1280,7 +1314,8 @@ def timed_steps(tag, model, trainer, batch, device, want, timed=3):
     """`timed` counted training steps, each held to the launch counts
     `want` and to a finite loss and gradient norm: prints each step, the
     launches, the aux terms, ms/step, samples/s and peak memory, then the
-    stage times of one more step.  Returns the last step's launches."""
+    stage times of one more step.  Returns (the last step's launches,
+    ms/step)."""
     import torch
 
     torch.cuda.reset_peak_memory_stats(device)
@@ -1316,7 +1351,7 @@ def timed_steps(tag, model, trainer, batch, device, want, timed=3):
     st = stage_times(lambda: trainer.step(batch), [model, trainer])
     print(f"[{tag}] stage ms: " + ", ".join(f"{k} {t:.2f}"
                                             for k, t in st.items()))
-    return launches
+    return launches, ms
 
 
 def flagship_trainer(model, timed=3):
@@ -1334,7 +1369,7 @@ def flagship_train_batch(device):
 
 def run_train(device):
     """Phase 5 and 6.  Returns (kernel records of phase 5, {kernel name:
-    launches in the counted step}, the warm-up step's loss)."""
+    launches in the counted step}, the warm-up step's loss, ms/step)."""
     import torch
 
     batch = flagship_train_batch(device)
@@ -1347,13 +1382,22 @@ def run_train(device):
     torch.cuda.synchronize()
     rec["boxes_iou_bev_pairwise"] = check_pairwise(model, batch)
     torch.cuda.empty_cache()
+    print(f"[train] warm-up step loss {warm:.6f}")
+    launches, step_ms = timed_steps("train", model, trainer, batch, device,
+                                    step_launches())
+    return rec, launches, warm, step_ms
+
+
+def step_launches():
+    """{kernel name: launches} of one one-stage training step at batch
+    TRAIN_BATCH: K1 and K8 once a sample, the 20 forward convs and 19
+    input gradients of K4, the 20 weight gradients of K5, K6 once a
+    head."""
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": TRAIN_BATCH, "rowpad_conv": 39,
                  "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
                  "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
-    print(f"[train] warm-up step loss {warm:.6f}")
-    return rec, timed_steps("train", model, trainer, batch, device,
-                            want), warm
+    return want
 
 
 # the tiny training check's draws: points from RandomState(s), GT from
@@ -1590,7 +1634,7 @@ def run_two_stage_train(device):
                  "boxes_overlap_bev": TRAIN_BATCH,
                  "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
     return rec, timed_steps("two-stage train", model, trainer, batch,
-                            device, want)
+                            device, want)[0]
 
 
 def roi_grad_shares(grads):
@@ -1822,11 +1866,282 @@ def run_sliding_train(device, warm_ref):
                      "rowpad_conv_sliding": 17, "rowpad_conv": 22,
                      "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
                      "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
-        launches = timed_steps("sliding train", model, trainer, batch,
-                               device, want)
+        launches, _ = timed_steps("sliding train", model, trainer, batch,
+                                  device, want)
     finally:
         rowpad_conv.USE_SLIDING = was
     return rec, launches
+
+
+# phase 12: a Waymo-layout tree of TREE_FRAMES frames for train_det, on the
+# flagship config (TREE_BASE, relative to the repo root)
+TREE_BASE = "configs/det_model_cfgs/centerpoint_5sweeps.yaml"
+TREE_FRAMES = 8
+TREE_POINTS = 160_000        # entry()'s count, a Waymo frame's scale
+TREE_OBJECTS = 48
+EGO_STEP_M = 1.0             # the ego's motion a frame, along x
+EGO_YAW = 0.01               # and its turn a frame, rad
+FRAME_DT = 0.1               # s between Waymo frames (10 Hz)
+LOADER_BATCHES = 4           # one epoch of 8 frames at batch 2
+
+
+def write_waymo_tree(root, seed=0):
+    """Writes one sequence in the layout of detzero_tpu_torch/data/
+    waymo_dataset.py under `root`: <seq>/NNNN.npy frames, the info pkl
+    with 9-wide gt_boxes_lidar and a GT-database pickle of every object's
+    crop in every frame; returns the path of a yaml on TREE_BASE that
+    points DATA_PATH and the database there.  The frames are the port's
+    SyntheticWaymoDataset scenes (their objects move at constant velocity
+    within a sequence), seen from poses that move EGO_STEP_M and turn
+    EGO_YAW a frame; velocities are the generator's displacement from one
+    frame to the next over FRAME_DT, in the lidar frame."""
+    import pickle
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.data.waymo_dataset import SyntheticWaymoDataset
+    from detzero_tpu_torch.ops import box_np
+
+    root = Path(root)
+    cfg = cfg_from_yaml_file(TREE_BASE, Config())
+    cfg.update(SYNTHETIC_POINTS=TREE_POINTS, SYNTHETIC_OBJECTS=TREE_OBJECTS,
+               SYNTHETIC_SEED=seed)
+    gen = SyntheticWaymoDataset(cfg, cfg["CLASS_NAMES"], training=False)
+    seq = "segment-synthetic_000"
+    (root / "waymo_processed_data" / seq).mkdir(parents=True)
+    infos, db = [], {n: [] for n in cfg["CLASS_NAMES"]}
+    for f in range(TREE_FRAMES):
+        pts, boxes_w, names = gen.generate_scene(f)
+        next_xy = gen.generate_scene(f + 1)[1][:, :2]
+        yaw = EGO_YAW * f
+        pose = np.eye(4)
+        pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)],
+                        [np.sin(yaw), np.cos(yaw)]]
+        pose[0, 3] = EGO_STEP_M * f
+        inv = np.linalg.inv(pose)
+        lidar = np.full((len(pts), 6), -1.0, np.float32)
+        lidar[:, :3] = pts[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+        lidar[:, 3:5] = pts[:, 3:5]          # intensity, elongation
+        boxes = np.zeros((len(boxes_w), 9), np.float32)
+        boxes[:, :3] = boxes_w[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+        boxes[:, 3:6] = boxes_w[:, 3:6]
+        boxes[:, 6] = boxes_w[:, 6] - yaw
+        boxes[:, 7:9] = (next_xy - boxes_w[:, :2]) / FRAME_DT @ inv[:2, :2].T
+        np.save(root / "waymo_processed_data" / seq / f"{f:04d}.npy", lidar)
+        counts = []
+        for b, name in zip(boxes, names):
+            inside = box_np.points_in_rotated_box(lidar, b[:7])
+            crop = np.zeros((int(inside.sum()), 6), np.float32)
+            crop[:, :5] = lidar[inside, :5]      # time offset 0
+            counts.append(len(crop))
+            db[name].append({"name": name, "box": b[:7].copy(),
+                             "points": crop, "num_points_in_gt": len(crop),
+                             "sample_idx": f})
+        infos.append({"point_cloud": {"lidar_sequence": seq,
+                                      "sample_idx": f},
+                      "pose": pose.astype(np.float32),
+                      "frame_id": f"{seq}_{f:03d}",
+                      "annos": {"name": names, "gt_boxes_lidar": boxes,
+                                "num_points_in_gt": np.asarray(counts)}})
+    with open(root / "waymo_infos_train.pkl", "wb") as fh:
+        pickle.dump(infos, fh)
+    with open(root / "waymo_dbinfos_train.pkl", "wb") as fh:
+        pickle.dump(db, fh)
+    augs = [dict(a) for a in cfg["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"]]
+    for a in augs:
+        if a["NAME"] == "gt_sampling":
+            a["DB_INFO_PATH"] = str(root / "waymo_dbinfos_train.pkl")
+    path = root / "centerpoint_5sweeps_tree.yaml"
+    # the list in flow style: JSON is a flow collection of the subset
+    path.write_text(f"_BASE_CONFIG_: {TREE_BASE}\n"
+                    f"DATA_PATH: {json.dumps(str(root))}\n"
+                    f"DATA_AUGMENTOR:\n"
+                    f"  AUG_CONFIG_LIST: {json.dumps(augs)}\n")
+    return path
+
+
+@contextlib.contextmanager
+def profiled_calls(cls, name, out):
+    """While open, every call of cls.name runs under torch.profiler and
+    sets out["wall_ms"] (host clock to a synchronised end) and
+    out["busy_ms"] (the union of the card's kernel intervals,
+    chip_profile.busy_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_profile import busy_ms
+
+    orig = getattr(cls, name)
+
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["busy_ms"] = busy_ms(prof)
+        return res
+
+    setattr(cls, name, call)
+    try:
+        yield out
+    finally:
+        setattr(cls, name, orig)
+
+
+def run_train_det(device, fixed_step_ms):
+    """Phase 12.  Returns ({kernel name: record of its check at the new
+    shapes}, {kernel name: launches a step})."""
+    import tempfile
+
+    import torch
+    from detzero_tpu_torch.core.checkpoint import CheckpointManager
+    from detzero_tpu_torch.data.waymo_dataset import build_dataloader
+    from detzero_tpu_torch.parallel.trainer import Trainer
+    from detzero_tpu_torch.tools import common, train_det
+
+    smi = nvidia_smi_line()
+    cwd = os.getcwd()
+    os.chdir(REPO)        # the yamls' _BASE_CONFIG_ paths are relative
+    try:
+        with tempfile.TemporaryDirectory(prefix="waymo_tree_") as tmp:
+            t0 = time.perf_counter()
+            yaml_path = write_waymo_tree(Path(tmp) / "waymo")
+            print(f"[train_det] wrote {TREE_FRAMES} frames of {TREE_POINTS} "
+                  f"points, {TREE_OBJECTS} objects each, in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            cfg = common.load_config(common.base_parser("").parse_args(
+                ["--cfg_file", str(yaml_path)]))
+
+            # the loader alone, and the new shapes on its first batch
+            dataset = common.build_detection_dataset(
+                cfg, training=True, rng=np.random.RandomState(0))
+            loader = build_dataloader(dataset, TRAIN_BATCH, shuffle=True,
+                                      num_workers=2)
+            times, first = [], None
+            t0 = time.perf_counter()
+            for b in loader(0):
+                times.append((time.perf_counter() - t0) * 1e3)
+                first = first or b
+                t0 = time.perf_counter()
+            if len(times) != LOADER_BATCHES:
+                raise AssertionError(f"loader gave {len(times)} batches")
+            loader_ms = sum(times) / len(times)
+            print(f"[train_det] loader: {', '.join(f'{t:.1f}' for t in times)}"
+                  f" ms a batch; points valid "
+                  f"{first['points_valid'].sum(1).tolist()} of "
+                  f"{first['points'].shape[1]}, GT "
+                  f"{first['gt_valid'].sum(1).tolist()} (width "
+                  f"{first['gt_boxes'].shape[2]})")
+            rec, kept = check_train_det_shapes(cfg, first, device)
+
+            out = Path(tmp) / "output"
+            args = ["--cfg_file", str(yaml_path), "--device", str(device),
+                    "--workers", "2", "--output_dir", str(out),
+                    "--log_every", "1"]
+            exp = out / yaml_path.stem / "default" / "ckpt"
+            want = step_launches()
+
+            def run(max_steps, n_steps):
+                reset_counts()
+                trainer = train_det.main(args + ["--max_steps",
+                                                 str(max_steps)])
+                torch.cuda.synchronize()
+                got = read_counts()
+                if got != {k: n_steps * v for k, v in want.items()}:
+                    raise AssertionError(f"train_det to step {max_steps}: "
+                                         f"launches {got}, expected "
+                                         f"{n_steps} x {want}")
+                if trainer.step_count != max_steps:
+                    raise AssertionError(f"train_det ended at step "
+                                         f"{trainer.step_count}, not "
+                                         f"{max_steps}")
+                return trainer
+
+            run(4, 4)          # the trainer is freed at once
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+            trainer = run(6, 2)
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            lines = [json.loads(x) for x in
+                     (exp / "metrics.jsonl").read_text().splitlines()]
+            if [x["step"] for x in lines] != list(range(1, 7)):
+                raise AssertionError(f"metrics.jsonl steps "
+                                     f"{[x['step'] for x in lines]}: the "
+                                     f"second run did not resume at 4")
+            if not all(np.isfinite(v) for x in lines for v in x.values()):
+                raise AssertionError("metrics.jsonl holds a value that is "
+                                     "not finite")
+            saved, step = CheckpointManager(exp).restore_any()
+            live = trainer.model.state_dict()
+            if step != 6 or saved["model"].keys() != live.keys() or not all(
+                    torch.equal(saved["model"][k], v.cpu())
+                    for k, v in live.items()):
+                raise AssertionError(f"checkpoint of step {step} differs "
+                                     f"from the live model")
+            t0 = time.perf_counter()
+            trainer.save()
+            save_ms = (time.perf_counter() - t0) * 1e3
+            ckpt_bytes = trainer.ckpt.path(6).stat().st_size
+            fit_ms = [x["ms_per_it"] for x in lines[4:]]
+            for x in lines:
+                print(f"[train_det] metrics step {x['step']}: loss "
+                      f"{x['loss']:.4f}, gnorm {x['gnorm']:.4f}, "
+                      f"{x['ms_per_it']:.1f} ms/it")
+            del trainer
+            torch.cuda.empty_cache()
+
+            with profiled_calls(Trainer, "fit", {}) as prof:
+                run(8, 2)
+            idle = 1.0 - prof["busy_ms"] / prof["wall_ms"]
+            print(f"[train_det] fit to step 8 under torch.profiler: wall "
+                  f"{prof['wall_ms']:.1f} ms, card busy "
+                  f"{prof['busy_ms']:.1f} ms, idle share {idle:.3f}")
+    finally:
+        os.chdir(cwd)
+
+    print(f"[train_det] {smi}: loader {loader_ms:.1f} ms a batch (mean of "
+          f"{LOADER_BATCHES}, 2 threads); fit {sum(fit_ms) / 2:.1f} ms/step "
+          f"over the resumed steps 5-6 ({fit_ms[0]:.1f}, {fit_ms[1]:.1f}); "
+          f"phase 6's step on its fixed batch {fixed_step_ms:.1f} ms")
+    print(f"[train_det] {smi}: idle share in fit {idle:.3f} (steps 7-8, "
+          f"its first batch's wait and final save included); peak memory "
+          f"{peak:.2f} GiB (steps 5-6); checkpoint {ckpt_bytes} bytes, "
+          f"saved in {save_ms:.1f} ms")
+    print(f"[train_det] {smi}: pillars kept a level (capacity): " + "; ".join(
+        f"sample {i}: " + ", ".join(f"L{lv} {k} ({c})" for lv, (k, c) in
+                                    enumerate(levels))
+        for i, levels in enumerate(kept)))
+    print(f"[train_det] launches a step: {want}")
+    return rec, want
+
+
+def check_train_det_shapes(cfg, batch, device):
+    """Phase 12's kernel checks on the loader's first batch, on the
+    config's model: K1 at F = len(used_feature_list) on sample 0, and the
+    stem conv F -> 16 of K4 and K5 on the stacked batch.  Returns
+    ({name: record}, per sample [(pillars kept, capacity) a level])."""
+    import torch
+    from detzero_tpu_torch.tools import common
+
+    model = common.build_detector(cfg, device)
+    b = {k: torch.from_numpy(batch[k]).to(device)
+         for k in ("points", "points_valid", "gt_boxes", "gt_classes",
+                   "gt_valid")}
+    kept = []
+    for i in range(b["points"].shape[0]):
+        table = model.build_table(b["points"][i], b["points_valid"][i])
+        plan = model.build_plan(table)
+        kept.append([(int(plan[lv]["mask"].sum()), cap) for lv, cap in
+                     enumerate(model.pillar_capacities)])
+        if i == 0:
+            rec, _ = check_vfe(model, table, "train_det")
+    rec = {"stream_rowpad_feats": rec,
+           **check_train_kernels(model, b, device, stem_only=True,
+                                 tag="train_det")}
+    del model
+    torch.cuda.empty_cache()
+    return rec, kept
 
 
 def main():
@@ -1876,7 +2191,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 5. and 6. training kernels, the flagship train step, the tiny check
-    train_rec, by_path["train_step"], warm = run_train(device)
+    train_rec, by_path["train_step"], warm, step_ms = run_train(device)
     rec.update(train_rec)
     torch.cuda.empty_cache()
     check_tiny_train(device)
@@ -1896,6 +2211,12 @@ def main():
     # step with it
     rec["rowpad_conv_sliding"], by_path["sliding_train_step"] = \
         run_sliding_train(device, warm)
+    torch.cuda.empty_cache()
+
+    # 12. the training entry point on a Waymo-layout tree
+    det_rec, by_path["train_det"] = run_train_det(device, step_ms)
+    for name, r in det_rec.items():
+        rec[name]["train_det"] = r
 
     # result lines
     kernels = []
@@ -1916,12 +2237,14 @@ def main():
         if "weighted_ms" in r:
             kernels[-1]["weighted_ms"] = r["weighted_ms"]
         # K3 on the frame's NMS input, K7 on 1000 x 1000 clustered boxes,
-        # K10's mask and walk alone and K10 on the clustered boxes
-        for key in ("frame", "big", "mask", "walk", "clustered"):
+        # K10's mask and walk alone and K10 on the clustered boxes, K1, K4
+        # and K5 at phase 12's shapes (F = 6)
+        for key in ("frame", "big", "mask", "walk", "clustered",
+                    "train_det"):
             if key in r:
                 kernels[-1][key] = {k: r[key][k] for k in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-                    if k in r[key]}
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms") if k in r[key]}
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -91,6 +91,21 @@ def convert_centerpoint(variables, model=None):
     return state
 
 
+def flax_path(key, ndim):
+    """(collection, path list) of the flax leaf that the port's state_dict
+    entry `key` of `ndim` dimensions maps to (`to_flax`'s name rule)."""
+    path = key.split(".")
+    name, parent = path[-1], (path[-2] if len(path) > 1 else "")
+    if name in ("mean", "var"):
+        return "batch_stats", path
+    if name == "weight" and ndim in (2, 4):
+        return "params", path[:-1] + ["kernel"]
+    if (name == "kernel" and ndim == 3 and _kept_3d(parent)) \
+            or name in ("scale", "bias"):
+        return "params", path
+    raise ValueError(f"no conversion rule for {key} ({ndim} dimensions)")
+
+
 def to_flax(state):
     """The inverse of `convert_centerpoint`: {name: tensor or array} ->
     {"params": nested numpy tree[, "batch_stats": ...]} of float32 copies
@@ -99,23 +114,14 @@ def to_flax(state):
     for key, val in state.items():
         arr = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) \
             else np.asarray(val)
-        path = key.split(".")
-        name, parent = path[-1], (path[-2] if len(path) > 1 else "")
-        collection = "params"
-        if name in ("mean", "var"):
-            collection = "batch_stats"
-        elif name == "weight" and arr.ndim == 4:
-            if parent.startswith("ConvTranspose"):
+        collection, path = flax_path(key, arr.ndim)
+        if arr.ndim == 4 and collection == "params":
+            if path[-2].startswith("ConvTranspose"):
                 arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
             else:
                 arr = arr.transpose(2, 3, 1, 0)
-            path = path[:-1] + ["kernel"]
-        elif name == "weight" and arr.ndim == 2:
+        elif arr.ndim == 2 and path[-1] == "kernel":
             arr = arr.T
-            path = path[:-1] + ["kernel"]
-        elif not ((name == "kernel" and arr.ndim == 3 and _kept_3d(parent))
-                  or name in ("scale", "bias")):
-            raise ValueError(f"no conversion rule for {key} {arr.shape}")
         node = out.setdefault(collection, {})
         for part in path[:-1]:
             node = node.setdefault(part, {})

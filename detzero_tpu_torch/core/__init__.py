@@ -1,1 +1,2 @@
-"""Optimizers and schedules; import the submodules directly."""
+"""Config, logging, registries, optimizers and checkpoints; import the
+submodules directly."""

@@ -1,5 +1,4 @@
-"""Optimizers and learning-rate schedules (port of detzero_tpu/core/optim.py,
-without its PARAMWISE branch, which raises NotImplementedError here).
+"""Optimizers and learning-rate schedules (port of detzero_tpu/core/optim.py).
 
 The reference chains optax transforms: clip_by_global_norm, then AdamW (or
 SGD) with weight decay masked by `wd_mask`, scaled by the schedule.  Here
@@ -17,6 +16,14 @@ the C library's single-precision cosine (the one XLA's CPU backend calls),
 so the learning rate of every step is optax's to the bit.
 `optax.cosine_onecycle_schedule` is not torch's OneCycleLR, whose phases and
 momentum cycling differ.
+
+PARAMWISE (`custom_keys` of lr_mult and decay_mult) splits the parameters
+into groups by their multipliers.  A key matches as a substring of the
+parameter's flax path (`convert.flax_path`: `kernel` for `weight`), the
+longest key winning, so one config gives the same multipliers in both
+packages.  As in the reference's chain (scale_by_adam, decay, learning
+rate, lr_mult), a group's update is -lr * lr_mult * (Adam direction +
+WEIGHT_DECAY * decay_mult * p), the decay only where `wd_mask` allows it.
 """
 
 from __future__ import annotations
@@ -29,6 +36,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from detzero_tpu_torch.convert import flax_path
 
 
 def wd_mask(names):
@@ -113,16 +122,41 @@ def clip_by_global_norm_(tensors, norm, max_norm: float) -> None:
         t.copy_(torch.where(keep, t, t / norm.to(t.dtype) * max_norm))
 
 
+def paramwise_multipliers(names, paramwise_cfg):
+    """{parameter name: (lr_mult, decay_mult)} from PARAMWISE.custom_keys
+    (the reference's add_params, optimize_utils/__init__.py:81-137): the
+    longest custom key that is a substring of the parameter's dotted flax
+    path wins; unmatched parameters get (1, 1).  Keys and values accept
+    either case (lr_mult/LR_MULT).  `names` are (name, ndim) pairs."""
+    custom = dict(paramwise_cfg.get("custom_keys",
+                                    paramwise_cfg.get("CUSTOM_KEYS", {}))
+                  or {})
+    sorted_keys = sorted(sorted(custom.keys()), key=len, reverse=True)
+    out = {}
+    for name, ndim in names:
+        dotted = ".".join(flax_path(name, ndim)[1])
+        out[name] = (1.0, 1.0)
+        for k in sorted_keys:
+            if k in dotted:
+                c = custom[k]
+                out[name] = (float(c.get("lr_mult", c.get("LR_MULT", 1.0))),
+                             float(c.get("decay_mult",
+                                         c.get("DECAY_MULT", 1.0))))
+                break
+    return out
+
+
 class AdamW(torch.optim.Optimizer):
     """optax.adamw (eps_root 0, no Nesterov) as a torch optimizer, with
     optax's order of operations and float32 constants; a group's
     `weight_decay` is added to the Adam direction before the learning rate
-    scales it (decoupled decay)."""
+    scales it (decoupled decay), and its `lr_mult` (PARAMWISE) scales the
+    update after the learning rate."""
 
     def __init__(self, params, lr, betas=(0.9, 0.999), eps=1e-8,
                  weight_decay=0.0):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      weight_decay=weight_decay))
+                                      weight_decay=weight_decay, lr_mult=1.0))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -157,7 +191,10 @@ class AdamW(torch.optim.Optimizer):
                 torch._foreach_add_(upd, torch._foreach_mul(
                     params, group["weight_decay"]))
             lr = float(_f32(group["lr"]))
-            torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
+            upd = torch._foreach_mul(upd, -lr)
+            if group["lr_mult"] != 1.0:
+                torch._foreach_mul_(upd, group["lr_mult"])
+            torch._foreach_add_(params, upd)
 
 
 class Optimizer:
@@ -179,6 +216,23 @@ class Optimizer:
     def lr(self) -> float:
         """The learning rate the next `step` applies."""
         return self.optimizer.param_groups[0]["lr"]
+
+    def state_dict(self):
+        return {"optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict()}
+
+    def load_state_dict(self, state) -> None:
+        """Restore `state_dict()`'s output.  The next step's learning rate
+        comes from this optimizer's own schedule at the restored step count
+        (its total steps may differ from the saved run's), as optax
+        evaluates the reference's schedule at the restored count."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        step = self.scheduler.last_epoch
+        for group, base, fn in zip(self.optimizer.param_groups,
+                                   self.scheduler.base_lrs,
+                                   self.scheduler.lr_lambdas):
+            group["lr"] = base * fn(step)
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
@@ -205,19 +259,29 @@ def build_optimizer(opt_cfg: Mapping[str, Any], total_steps: int,
     'adam_onecycle' are `AdamW` with b2 0.99, 'adamW' and 'adamW_onecycle'
     with b2 0.999 (b1 0.9, eps 1e-8), 'sgd' torch's SGD with MOMENTUM
     (optax's trace); weight decay WEIGHT_DECAY on the `wd_mask` parameters;
-    GRAD_NORM_CLIP > 0 clips by global norm."""
-    if opt_cfg.get("PARAMWISE"):
-        raise NotImplementedError("PARAMWISE (per-parameter lr/decay "
-                                  "multipliers) is not ported yet")
+    GRAD_NORM_CLIP > 0 clips by global norm; PARAMWISE groups the Adam
+    family's parameters by their multipliers (`paramwise_multipliers`) and
+    is refused with 'sgd', as the reference refuses it."""
     name = opt_cfg["OPTIMIZER"]
     lr = float(opt_cfg["LR"])
     wd = float(opt_cfg.get("WEIGHT_DECAY", 0.0))
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     mask = wd_mask(n for n, _ in named)
-    groups = [{"params": [p for n, p in named if mask[n]],
-               "weight_decay": wd},
-              {"params": [p for n, p in named if not mask[n]],
-               "weight_decay": 0.0}]
+    paramwise = opt_cfg.get("PARAMWISE")
+    if paramwise and name == "sgd":
+        raise NotImplementedError(
+            "PARAMWISE with OPTIMIZER sgd is not supported")
+    mults = paramwise_multipliers(((n, p.ndim) for n, p in named),
+                                  paramwise) if paramwise else {}
+    # one group per (lr_mult, weight decay): without PARAMWISE, the decayed
+    # parameters and the rest
+    keyed = {}
+    for n, p in named:
+        lr_mult, decay_mult = mults.get(n, (1.0, 1.0))
+        keyed.setdefault((lr_mult, wd * decay_mult if mask[n] else 0.0),
+                         []).append(p)
+    groups = [{"params": ps, "lr_mult": k[0], "weight_decay": k[1]}
+              for k, ps in keyed.items()]
     if name in ("adam", "adam_onecycle", "adamW", "adamW_onecycle"):
         b2 = 0.99 if name in ("adam", "adam_onecycle") else 0.999
         opt = AdamW(groups, lr=lr, betas=(0.9, b2), eps=1e-8)

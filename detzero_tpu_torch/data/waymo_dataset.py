@@ -1,0 +1,294 @@
+"""Waymo Open Dataset wiring.
+
+Mirrors the reference's data layout (SURVEY layer map 'Data layout'):
+    data/waymo/ImageSets/{train,val,test}.txt      sequence lists
+    data/waymo/waymo_processed_data/<seq>/NNNN.npy per-frame points
+    data/waymo/waymo_infos_<split>.pkl             per-frame info dicts
+    data/waymo/gt_database_*/ + *_db_infos.pkl     GT sampling database
+
+Port of detzero_tpu/data/waymo_dataset.py.  WaymoDetectionDataset loads
+the info pkls of a split and assembles multi-sweep samples through
+DatasetTemplate (merge_sweeps / prepare_data).  It reads the sweeps with
+numpy `merge_sweeps` only: the reference's ctypes loader
+(detzero_tpu/native, USE_NATIVE_LOADER) is ported with the offboard
+daemon, and the reference takes this same numpy path where that library
+is not built (tests/test_native_loader.py holds the two paths equal).
+`evaluation` raises until the evaluator (pipeline/evaluator.py) is ported.
+
+SyntheticWaymoDataset generates self-consistent random scenes with the same
+schema, so every CLI/train path runs end-to-end without the dataset.
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+
+import numpy as np
+
+from detzero_tpu_torch.core.registry import DATASETS
+from detzero_tpu_torch.data.dataset import (
+    DatasetTemplate, get_sweep_idxs, merge_sweeps,
+)
+
+# the detection evaluator (waymo_dataset.py:113-130 of the reference,
+# pipeline/evaluator.py) comes with the port's test_det slice
+_NO_EVALUATOR = ("detection evaluation is not ported yet: it comes with the "
+                 "tools/test_det.py slice (the evaluator, pipeline/"
+                 "evaluator.py)")
+
+
+@DATASETS.register("WaymoDetectionDataset")
+class WaymoDetectionDataset(DatasetTemplate):
+    def __init__(self, dataset_cfg, class_names, training, root_path=None,
+                 logger=None, rng=None):
+        super().__init__(dataset_cfg, class_names, training, root_path, logger,
+                         rng)
+        self.root = Path(root_path or dataset_cfg.get("DATA_PATH", "data/waymo"))
+        self.split = dataset_cfg.get(
+            "DATA_SPLIT", {}).get("train" if training else "test", "train")
+        self.sweep_count = dataset_cfg.get("SWEEP_COUNT", [0, 0])
+        self.infos = []
+        self.init_infos(logger)
+
+    def init_infos(self, logger=None):
+        """Load per-sequence info pkls listed in the split file
+        (waymo_dataset.py:57)."""
+        split_file = self.root / "ImageSets" / f"{self.split}.txt"
+        info_path = self.root / f"waymo_infos_{self.split}.pkl"
+        if info_path.exists():
+            with open(info_path, "rb") as f:
+                self.infos = pickle.load(f)
+        elif split_file.exists():
+            for seq in split_file.read_text().split():
+                p = self.root / "waymo_processed_data" / seq / f"{seq}.pkl"
+                if p.exists():
+                    with open(p, "rb") as f:
+                        self.infos.extend(pickle.load(f))
+        if logger:
+            logger.info(f"waymo {self.split}: {len(self.infos)} frames")
+
+    def __len__(self):
+        return len(self.infos)
+
+    def get_points(self, info):
+        seq = info["point_cloud"]["lidar_sequence"]
+        idx = info["point_cloud"]["sample_idx"]
+        return np.load(self.root / "waymo_processed_data" / seq
+                       / f"{idx:04d}.npy")
+
+    def __getitem__(self, index):
+        info = self.infos[index]
+        cur_idx = info["point_cloud"]["sample_idx"]
+        sweep_idx = get_sweep_idxs(cur_idx, self.sweep_count, len(self.infos))
+        sweep_infos = [self.infos[index - (cur_idx - si)] for si in sweep_idx]
+        sweep_dts = [0.1 * (si - cur_idx) for si in sweep_idx]
+
+        points = merge_sweeps(
+            self.get_points(info), info["pose"],
+            [self.get_points(s) for s in sweep_infos],
+            [s["pose"] for s in sweep_infos], sweep_dts)
+        data = {
+            "points": points,
+            "frame_id": info["point_cloud"]["sample_idx"],
+            "sequence_name": info["point_cloud"]["lidar_sequence"],
+            "pose": info["pose"],
+        }
+        if "annos" in info:
+            data["gt_boxes"] = np.asarray(info["annos"]["gt_boxes_lidar"],
+                                          np.float32)
+            data["gt_names"] = np.asarray(info["annos"]["name"])
+        return self.prepare_data(data)
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        raise NotImplementedError(_NO_EVALUATOR)
+
+
+@DATASETS.register("SyntheticWaymoDataset")
+class SyntheticWaymoDataset(DatasetTemplate):
+    """Random but physically-consistent scenes in the Waymo schema."""
+
+    def __init__(self, dataset_cfg, class_names, training, root_path=None,
+                 logger=None, rng=None):
+        super().__init__(dataset_cfg, class_names, training, root_path, logger,
+                         rng)
+        self.length = int(dataset_cfg.get("SYNTHETIC_LENGTH", 64))
+        self.seed = int(dataset_cfg.get("SYNTHETIC_SEED", 0))
+        self.n_objects = int(dataset_cfg.get("SYNTHETIC_OBJECTS", 8))
+        self.n_points = int(dataset_cfg.get("SYNTHETIC_POINTS", 20_000))
+        # v3 realism (opt-in; gives the refining stages headroom — VERDICT
+        # r2 #5): only sensor-facing faces carry points (partial views =>
+        # per-frame size ambiguity GRM can fix), point budget falls with
+        # range, and occasional occlusion dropout starves single frames
+        # (CRM signal). Class mix reweighted so Cyclist isn't data-starved.
+        self.occlusion = bool(dataset_cfg.get("SYNTHETIC_OCCLUSION", False))
+        self.class_weights = dataset_cfg.get(
+            "SYNTHETIC_CLASS_WEIGHTS",
+            [0.4, 0.3, 0.3] if self.occlusion else None)
+
+    def __len__(self):
+        return self.length
+
+    FRAMES_PER_SEQ = 16
+
+    def generate_scene(self, index):
+        """Deterministic scene for `index`: (points, gt_boxes, gt_names).
+
+        Scenes are SEQUENTIAL: frames within a 16-frame sequence share the
+        same objects (seeded by the sequence id) moving at constant velocity,
+        so tracking/refining stages have real temporal structure."""
+        seq = index // self.FRAMES_PER_SEQ
+        fidx = index % self.FRAMES_PER_SEQ
+        rng = np.random.RandomState(self.seed + seq * 7919)
+        lo = self.pc_range[:3]
+        hi = self.pc_range[3:]
+        sizes = {"Vehicle": [4.6, 2.0, 1.6], "Pedestrian": [0.9, 0.85, 1.7],
+                 "Cyclist": [1.8, 0.85, 1.7]}
+        names, boxes, obj_pts = [], [], []
+        span = np.minimum(np.abs(lo[:2]), 40) * 0.7
+        for _ in range(self.n_objects):
+            if self.class_weights is not None:
+                w = np.asarray(self.class_weights[:len(self.class_names)],
+                               float)
+                cls = self.class_names[rng.choice(len(self.class_names),
+                                                  p=w / w.sum())]
+            else:
+                cls = self.class_names[rng.randint(len(self.class_names))]
+            base = np.asarray(sizes.get(cls, [2, 2, 2]))
+            heading = rng.uniform(-np.pi, np.pi)
+            if cls in ("Vehicle", "Cyclist"):
+                # moving rigid objects travel ALONG their heading (the
+                # real-Waymo prior): per-frame points can only pin heading
+                # mod pi (front/back faces are identical), so the full-
+                # circle signal the reference's PRM exploits is the track's
+                # motion direction — drawing velocity independently of
+                # heading (the r4 generator) made heading unrecoverable
+                # and capped APH for every track-level stage
+                speed = rng.uniform(0.0, 2.8 if cls == "Vehicle" else 0.45)
+                vel = speed * np.array([np.cos(heading), np.sin(heading)])
+            else:
+                vel = rng.uniform(-1.0, 1.0, 2) * 0.3
+            b = np.concatenate([
+                rng.uniform(-span, span, 2) + vel * fidx * 0.5, [0.0],
+                base * rng.uniform(0.85, 1.15, 3),
+                [heading],
+            ])
+            boxes.append(b)
+            names.append(cls)
+        # per-frame jitter rng (points differ each frame)
+        rng = np.random.RandomState(self.seed + index)
+        for b in boxes:
+            # SURFACE-sampled points (lidar sees shells, not volumes):
+            # top face + the two long sides + front/back, area-weighted —
+            # a strong, generalizable shape/heading cue. A volume-uniform
+            # blob (r1 generator) was learnable only by memorization.
+            n_pts = 120
+            dx, dy, dz = b[3:6]
+            faces = np.array([dx * dy, dx * dz, dx * dz, dy * dz, dy * dz])
+            if self.occlusion:
+                # visibility: a side face carries points only when its
+                # outward normal points toward the sensor (origin) — the
+                # single-frame view is PARTIAL, so per-frame size is
+                # ambiguous (GRM headroom) and the visible end breaks the
+                # heading ambiguity (APH headroom). Budget falls with
+                # range; occasional dropout starves a frame (CRM signal).
+                c0, s0 = np.cos(b[6]), np.sin(b[6])
+                to_sensor = -b[:2]
+                normals = np.array([
+                    [0.0, 0.0],                # top: always visible
+                    [-s0, c0],                 # +y side
+                    [s0, -c0],                 # -y side
+                    [c0, s0],                  # +x end
+                    [-c0, -s0],                # -x end
+                ])
+                vis = np.concatenate(
+                    [[True], (normals[1:] @ to_sensor) > 0])
+                faces = np.where(vis, faces, 0.0)
+                rng_m = float(np.linalg.norm(b[:2]))
+                n_pts = int(np.clip(120 * (18.0 / max(rng_m, 5.0)) ** 2,
+                                    10, 160))
+                if rng.rand() < 0.15:          # occluded frame
+                    n_pts = max(n_pts // 8, 3)
+            k = rng.multinomial(n_pts, faces / faces.sum())
+            u = rng.uniform(-0.5, 0.5, (n_pts, 2))
+            local = np.empty((n_pts, 3))
+            i0 = 0
+            for fi, kk in enumerate(k):
+                sl = slice(i0, i0 + kk)
+                if fi == 0:    # top
+                    local[sl] = np.c_[u[sl, 0] * dx, u[sl, 1] * dy,
+                                      np.full(kk, 0.5 * dz)]
+                elif fi == 1:  # +y side
+                    local[sl] = np.c_[u[sl, 0] * dx, np.full(kk, 0.5 * dy),
+                                      u[sl, 1] * dz]
+                elif fi == 2:  # -y side
+                    local[sl] = np.c_[u[sl, 0] * dx, np.full(kk, -0.5 * dy),
+                                      u[sl, 1] * dz]
+                elif fi == 3:  # front (+x) — same density as back, so
+                    # heading is ambiguous mod pi (hurts APH, not AP;
+                    # IoU is symmetric under a pi flip)
+                    local[sl] = np.c_[np.full(kk, 0.5 * dx),
+                                      u[sl, 0] * dy, u[sl, 1] * dz]
+                else:          # back (-x)
+                    local[sl] = np.c_[np.full(kk, -0.5 * dx),
+                                      u[sl, 0] * dy, u[sl, 1] * dz]
+                i0 += kk
+            local += rng.randn(n_pts, 3) * 0.02  # sensor noise
+            c, s = np.cos(b[6]), np.sin(b[6])
+            world = local.copy()
+            world[:, 0] = local[:, 0] * c - local[:, 1] * s + b[0]
+            world[:, 1] = local[:, 0] * s + local[:, 1] * c + b[1]
+            world[:, 2] = local[:, 2] + b[2]
+            obj_pts.append(world)
+        n_obj_pts = sum(len(p) for p in obj_pts)
+        n_bg = self.n_points - n_obj_pts
+        bg = rng.uniform(lo, hi, (max(n_bg, 0), 3))
+        bg[:, 2] = np.abs(rng.randn(len(bg))) * 0.2 - 0.5  # ground-ish
+        xyz = np.concatenate(obj_pts + [bg]).astype(np.float32)
+        extra = rng.rand(len(xyz), 3).astype(np.float32)  # intensity/elong/t
+        points = np.concatenate([xyz, extra], axis=1)
+        return points, np.stack(boxes).astype(np.float32), \
+            np.asarray(names, object)
+
+    def __getitem__(self, index):
+        points, gt_boxes, gt_names = self.generate_scene(index)
+        data = {
+            "points": points,
+            "gt_boxes": gt_boxes,
+            "gt_names": gt_names,
+            "frame_id": index,
+            "sequence_name": f"synthetic_{index // self.FRAMES_PER_SEQ:03d}",
+            "pose": np.eye(4, dtype=np.float32),
+        }
+        return self.prepare_data(data)
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        raise NotImplementedError(_NO_EVALUATOR)
+
+
+def build_dataloader(dataset, batch_size: int, shuffle: bool, num_workers: int = 0,
+                     seed: int = 0, drop_last: bool = True):
+    """Epoch iterator over the dataset with the fixed-shape collate:
+    `build_dataloader(...)(ep)` yields epoch ep's batches, in an order
+    shuffled by RandomState(seed + ep), with `num_workers` threads
+    assembling each batch's samples.  Samples are numpy and the model
+    consumes whole batches, so no torch DataLoader is needed."""
+    import concurrent.futures as cf
+
+    def epoch(ep=0):
+        order = np.arange(len(dataset))
+        if shuffle:
+            np.random.RandomState(seed + ep).shuffle(order)
+        n = (len(order) // batch_size * batch_size if drop_last else len(order))
+        if num_workers > 0:
+            with cf.ThreadPoolExecutor(num_workers) as pool:
+                for i in range(0, n, batch_size):
+                    samples = list(pool.map(dataset.__getitem__,
+                                            order[i:i + batch_size]))
+                    yield dataset.collate_batch(samples)
+        else:
+            for i in range(0, n, batch_size):
+                yield dataset.collate_batch(
+                    [dataset[j] for j in order[i:i + batch_size]])
+
+    return epoch

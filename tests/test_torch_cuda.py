@@ -590,6 +590,58 @@ def test_stream_vfe_kernel_edges(dev, scene, dtype):
     assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
+def test_six_feature_stem(dev):
+    """The training entry point's point layout (x, y, z, intensity,
+    elongation, time offset): K1 at F = 6 on a tiny model's own stream, and
+    the stem conv 6 -> 16 of K4 and K5 on K1's table, against their plain
+    versions at chip_smoke.py's tolerances (K1 2^-7, K4 2e-2, K5 1e-3, each
+    times max|ref|)."""
+    from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
+    from detzero_tpu_torch.ops import rowpad_conv, stream_vfe
+
+    cfg = {"CLASS_IDS_EACH_HEAD": [[0], [1, 2]],
+           "VOXEL_CAPACITIES": (2048, 1024, 512, 256),
+           "BEV_LAYER_NUMS": (1, 1)}
+    m = CenterPoint(cfg, 3, pc_range=(-6.4, -6.4, -2.0, 6.4, 6.4, 2.0),
+                    voxel_size=(0.2, 0.2, 0.5), num_point_features=6,
+                    device=dev)
+    rng = np.random.RandomState(6)
+    pts = rng.uniform(-6, 6, (3000, 6)).astype(np.float32)
+    pts[:, 2] = rng.uniform(-1.8, 1.8, 3000)
+    pts[:, 5] = rng.choice([0.0, -0.1, -0.2], 3000)
+    table = m.build_table(torch.from_numpy(pts).to(dev),
+                          torch.ones(3000, dtype=torch.bool, device=dev))
+    plan = m.build_plan(table)
+    s = table["stream"]
+    args = (s["payload"], s["lane"], s["z"], s["wstart"])
+    kw = dict(nz=8, ny=64, row_budget=128, out_dtype=torch.bfloat16)
+    assert args[0].shape[1] == 7
+    ref = stream_vfe.stream_rowpad_feats_plain(*args, **kw)
+    n0 = stream_vfe.LAUNCHES
+    feats = stream_vfe.stream_rowpad_feats(*args, **kw)
+    torch.cuda.synchronize()
+    assert stream_vfe.LAUNCHES == n0 + 1 and feats.shape == (64, 8 * 6, 128)
+    assert (feats.float() - ref.float()).abs().max() \
+        <= 2 ** -7 * ref.float().abs().max()
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    zm = plan[0]["rp_zmask"]
+    ckw = dict(nz=8, cin=6, cout=16, mode="subm")
+    w = _weight(6, 16, g).bfloat16().float()
+    ref = rowpad_conv.rowpad_conv_plain(feats, plan[0]["rp_nbr"], w, zm, **ckw)
+    got = rowpad_conv.rowpad_conv(feats, plan[0]["rp_nbr"], w, zm, **ckw)
+    d_out = _masked_table(zm, 16, g)
+    ref_dw = rowpad_conv.rowpad_conv_dw_plain(feats, plan[0]["rp_nbr"], d_out,
+                                              zm, **ckw)
+    got_dw = rowpad_conv.rowpad_conv_dw(feats, plan[0]["rp_nbr"], d_out, zm,
+                                        **ckw)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0 and float(ref_dw.abs().max()) > 0
+    assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+    assert got_dw.shape == (27, 6, 16)
+    assert (got_dw - ref_dw).abs().max() <= 1e-3 * ref_dw.abs().max()
+
+
 def test_tiny_model_card_vs_cpu(tiny):
     """bf16 on the card against f32 on the CPU: 5e-2 * max(|ref|, 1)."""
     cpu, gpu, p, v, *_ = tiny

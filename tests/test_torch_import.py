@@ -1,10 +1,13 @@
-"""detzero_tpu_torch imports neither jax, flax nor detzero_tpu (predict, one
-training step and the two-stage predict and loss run with jax blocked), and
-on CPU tensors every kernel wrapper takes its plain version (no launch
-counted); on a tensor that is neither CPU nor CUDA a wrapper raises instead
+"""detzero_tpu_torch imports neither jax, flax, yaml nor detzero_tpu
+(predict, one training step, the two-stage predict and loss, and one step
+of the training entry point from its config and loader run with them
+blocked; no source file of the package, nor chip_smoke.py or
+chip_profile.py, names them in an import), and on CPU tensors every
+kernel wrapper takes its plain version (no launch counted); on a tensor that is neither CPU nor CUDA a wrapper raises instead
 of falling back; and without a card the model is built only when the
 caller asks for the CPU."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -34,12 +37,25 @@ MAIN_PATH = [
     "detzero_tpu_torch.ops.iou3d", "detzero_tpu_torch.core.optim",
     "detzero_tpu_torch.parallel.trainer",
     "detzero_tpu_torch.models.detection.pdv_head",
+    "detzero_tpu_torch.ops.box_np", "detzero_tpu_torch.core.yaml_subset",
+    "detzero_tpu_torch.core.config", "detzero_tpu_torch.core.registry",
+    "detzero_tpu_torch.core.logger", "detzero_tpu_torch.core.checkpoint",
+    "detzero_tpu_torch.data.point_encoder",
+    "detzero_tpu_torch.data.processor",
+    "detzero_tpu_torch.data.database_sampler",
+    "detzero_tpu_torch.data.augmentor", "detzero_tpu_torch.data.tta",
+    "detzero_tpu_torch.data.dataset", "detzero_tpu_torch.data.waymo_dataset",
+    "detzero_tpu_torch.tools.common", "detzero_tpu_torch.tools.train_det",
 ]
 
 SCRIPT = """
 import importlib, json, sys
 sys.modules["jax"] = None      # any import of jax now raises
 sys.modules["flax"] = None
+sys.modules["yaml"] = None
+# TensorBoard's writer would load TensorFlow (12 s); the trainer runs
+# without it, as on the card's machine
+sys.modules["torch.utils.tensorboard"] = None
 import numpy as np, torch
 torch.set_num_threads(1)
 for name in {mods!r}:
@@ -82,15 +98,25 @@ loss2, _ = m2.loss(pts.expand(2, -1, -1), torch.ones(2, 512, dtype=torch.bool),
                    gb, torch.zeros(2, 4, dtype=torch.int32), gv,
                    generator=torch.Generator().manual_seed(1))
 loss2.backward()
+# the training entry point: config, synthetic dataset, loader, one step
+import tempfile
+from detzero_tpu_torch.tools import train_det
+with tempfile.TemporaryDirectory() as tmp:
+    cli = train_det.main([
+        "--cfg_file", "configs/det_model_cfgs/centerpoint_synthetic_cpu.yaml",
+        "--device", "cpu", "--workers", "0", "--output_dir", tmp,
+        "--max_steps", "1", "--set", "MODEL.PILLAR_ROW_BUDGET", "16",
+        "MODEL.BEV_LAYER_NUMS", "[1, 1]"]).step_count
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu")
+             if k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu",
+                                    "yaml")
              and sys.modules[k] is not None)
 print(json.dumps({{"bad": bad, "kept": int(out["mask"].sum()),
     "finite": bool(torch.isfinite(loss) and torch.isfinite(gnorm)),
     "two_stage": [list(out2["boxes"].shape), int(out2["mask"].sum()),
                   bool(torch.isfinite(out2["boxes"]).all()),
                   bool(torch.isfinite(loss2))],
-    "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
+    "cli": cli, "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
                  rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
                  iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
                  iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES,
@@ -110,7 +136,29 @@ def test_port_imports_no_jax_and_cpu_takes_plain_versions():
     assert res["kept"] > 0
     assert res["finite"]
     assert res["two_stage"] == [[1, 8, 7], 8, True, True]
+    assert res["cli"] == 1
     assert res["launches"] == [0] * 10
+
+
+def _imported_roots(path):
+    """The top-level package of every import statement in a file."""
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            out |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in
+    [*REPO.glob("detzero_tpu_torch/**/*.py"), REPO / "chip_smoke.py",
+     REPO / "chip_profile.py"]))
+def test_no_source_imports_jax_yaml_or_the_reference(path):
+    roots = _imported_roots(REPO / path)
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "yaml",
+                        "detzero_tpu"}, path
 
 
 def test_wrappers_raise_off_cpu_and_cuda():

@@ -2,7 +2,9 @@
 gradient trees fed for 50 steps into both packages' build_optimizer with the
 flagship's OPTIMIZATION block (configs/det_model_cfgs/centerpoint_5sweeps
 .yaml) at a short total_steps, on the tiny model's parameter tree; the
-gradient norm alternates above and below GRAD_NORM_CLIP."""
+gradient norm alternates above and below GRAD_NORM_CLIP.  PARAMWISE (per
+parameter lr and decay multipliers from nested custom keys) for 5 steps
+against the reference's chain, and its refusal with sgd."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ from detzero_tpu.core import optim as jax_optim
 from detzero_tpu.core.config import Config
 from detzero_tpu_torch.convert import convert_centerpoint, to_flax
 from detzero_tpu_torch.core import optim
+from detzero_tpu_torch.core.config import Config as PortConfig
 from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
 
 from test_torch_convert import CFG, KW
@@ -116,7 +119,77 @@ def test_schedules_match_optax():
             assert abs(got(step) - r) <= 1e-7 * abs(r), (name, steps, step)
 
 
-def test_paramwise_raises(model):
+# nested custom keys: substrings of one another (the longest key wins),
+# both cases of the keys, a key that matches only flax's `kernel`, one
+# that matches nothing
+PARAMWISE = {"custom_keys": {
+    "backbone3d": {"lr_mult": 0.5},
+    "backbone3d.SparseConvBNReLU_0": {"lr_mult": 2.0, "decay_mult": 0.0},
+    "center_head": {"LR_MULT": 0.1, "DECAY_MULT": 3.0},
+    "center_head.head1": {"lr_mult": 4.0},
+    "Conv_0.kernel": {"decay_mult": 0.25},
+    "no_such_module": {"lr_mult": 9.0}}}
+
+
+def _flax_leaves(tree):
+    return {".".join(str(k.key) for k in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def test_paramwise_multipliers_match(model):
+    from detzero_tpu_torch.convert import flax_path
+
+    params = to_flax(dict(model.named_parameters()))["params"]
+    lr_t, dc_t = jax_optim.paramwise_multipliers(params, PARAMWISE)
+    ref_lr, ref_dc = _flax_leaves(lr_t), _flax_leaves(dc_t)
+    got = optim.paramwise_multipliers(
+        ((n, p.ndim) for n, p in model.named_parameters()), PARAMWISE)
+    assert len(got) == len(ref_lr)
+    for name, p in model.named_parameters():
+        dotted = ".".join(flax_path(name, p.ndim)[1])
+        assert got[name] == (ref_lr[dotted], ref_dc[dotted]), name
+    # every multiplier of the config is used by some parameter but one
+    assert {m for pair in got.values() for m in pair} == {
+        0.5, 2.0, 0.0, 0.1, 3.0, 4.0, 0.25, 1.0}
+
+
+@pytest.mark.parametrize("name", ["adam_onecycle", "adamW"])
+def test_paramwise_matches_optax(model, name):
+    """5 steps of the reference's PARAMWISE chain (build_optimizer with
+    params) against the port's parameter groups: every parameter within
+    1e-6 * max|p| of its leaf."""
+    steps = 5
+    cfg = dict(FLAGSHIP_OPT, OPTIMIZER=name, PARAMWISE=PARAMWISE)
+    params0 = to_flax(dict(model.named_parameters()))["params"]
+    tx, _ = jax_optim.build_optimizer(Config(cfg), steps, params=params0)
+    update = jax.jit(tx.update)
+    params = jax.tree.map(jnp.asarray, params0)
+    state = tx.init(params)
+
+    m = CenterPoint(CFG, 3, dtype=torch.float32, device="cpu", **KW)
+    m.load_state_dict(model.state_dict())
+    opt = optim.build_optimizer(PortConfig(cfg), steps, m)
+    named = dict(m.named_parameters())
+    for step in range(steps):
+        g = _grads(params0, step)
+        upd, state = update(g, state, params)
+        params = optax.apply_updates(params, upd)
+        for k, v in convert_centerpoint({"params": g}, m).items():
+            named[k].grad = v
+        opt.step()
+    got = to_flax(named)["params"]
+    moved = 0
+    for (path, ref), val, p0 in zip(
+            jax.tree_util.tree_flatten_with_path(params)[0],
+            jax.tree.leaves(got), jax.tree.leaves(params0)):
+        ref = np.asarray(ref)
+        scale = max(np.abs(ref).max(), np.abs(p0).max())
+        assert np.abs(val - ref).max() <= 1e-6 * scale, path
+        moved += not np.array_equal(ref, p0)
+    assert moved == len(jax.tree.leaves(params0))
+
+
+def test_paramwise_refuses_sgd(model):
     with pytest.raises(NotImplementedError, match="PARAMWISE"):
-        optim.build_optimizer(dict(FLAGSHIP_OPT, PARAMWISE={"custom_keys": {
-            "center_head": {"lr_mult": 0.1}}}), STEPS, model)
+        optim.build_optimizer(dict(FLAGSHIP_OPT, OPTIMIZER="sgd",
+                                   PARAMWISE=PARAMWISE), STEPS, model)
