@@ -5,7 +5,9 @@
 
 Phases, one line or more each; any failure raises and the exit code is 1:
   1. device: versions, card name and power limit (no CUDA -> exit 1);
-  2. build: compile detzero_tpu_torch/csrc/*.cu from this checkout;
+  2. build: compile detzero_tpu_torch/csrc/*.cu from this checkout, and
+     the native sweep loader (detzero_tpu_torch/native/loader.cpp, g++)
+     beside it;
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card, at the shapes of the flagship path, with stated tolerances
      and CUDA-event times (K2 at every distinct conv of the frame, with
@@ -68,15 +70,35 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      objects' velocities from the generator's motion), a GT database of
      the crops, and a yaml on configs/det_model_cfgs/centerpoint_5sweeps
      .yaml (5 sweeps, 200,000-point budget, capacities 150k/75k/40k/20k,
-     batch 2, adam_onecycle, all four augmentors).  The loader alone over
-     one epoch (4 batches); on its first batch K1 at F = 6 and the stem
-     conv 6 -> 16 of K4 and K5 against their plain versions, and the
-     pillars kept at each level against the capacities; then main() to
-     step 4, again to step 6 (it resumes at 4), and to step 8 under
+     batch 2, adam_onecycle, all four augmentors, the GT sampler seeded;
+     the sweeps read by the native reader).  The loader alone over one epoch (4 batches); on its
+     first batch K1 at F = 6 and the stem conv 6 -> 16 of K4 and K5
+     against their plain versions, and the
+     pillars kept at each level against the capacities; then main()
+     (one loader thread, so that the seeded draws and the checkpoint
+     phase 13 reads are the same in every run) to step 4, again to step 6 (it resumes at 4), and to step 8 under
      torch.profiler: the launches of every run (the one-stage step's,
      each step), finite metrics.jsonl lines for steps 1-6, the newest
      checkpoint equal to the live model, fit's ms/step over the resumed
-     steps, its idle share, peak memory, checkpoint bytes and save ms.
+     steps, its idle share, peak memory, checkpoint bytes and save ms;
+ 13. test_det and tracking, in phase 12's tree on its newest checkpoint
+     (the tree's 8 frames as the val split): `detzero_tpu_torch.tools
+     .test_det.main` with --save_to_file over all 8 frames through the
+     native sweep reader (K1 1, K2 20, K8 1, K10 1 a sample, and the
+     reader's sample count equal to the frames loaded), frames/s from
+     data, the loader's wait and predict's ms a frame, the evaluation
+     table; the loader alone, native against numpy, in ms a frame; then
+     with TTA on 2 frames (15 variants a frame, 30 samples; the same
+     launches a sample) and WBF's ms a frame; WBF "members" on the first
+     TTA frame's boxes, class by class, on the card against the CPU
+     (equal clusters and scores, boxes within 1e-4, one K7 launch a class
+     of more than 32 boxes); the evaluator on the tree's own GT offered as
+     detections (AP 1.0 at L1 and L2); `run_track` and `eval_track` on
+     test_det's result.pkl (every box may start a track and every track
+     is kept, TRACK_SET; at least one track) and on a box-only segment of
+     200 frames of the generator's 48 objects (the tracker's own config;
+     at least 24 tracks): tracks, frames/s, recall, precision, MOTA,
+     MOTP; no kernel launched.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -111,6 +133,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1941,14 +1964,17 @@ def write_waymo_tree(root, seed=0):
                       "frame_id": f"{seq}_{f:03d}",
                       "annos": {"name": names, "gt_boxes_lidar": boxes,
                                 "num_points_in_gt": np.asarray(counts)}})
-    with open(root / "waymo_infos_train.pkl", "wb") as fh:
-        pickle.dump(infos, fh)
+    # the same frames for train_det (split train) and test_det (val)
+    for split in ("train", "val"):
+        with open(root / f"waymo_infos_{split}.pkl", "wb") as fh:
+            pickle.dump(infos, fh)
     with open(root / "waymo_dbinfos_train.pkl", "wb") as fh:
         pickle.dump(db, fh)
     augs = [dict(a) for a in cfg["DATA_AUGMENTOR"]["AUG_CONFIG_LIST"]]
     for a in augs:
         if a["NAME"] == "gt_sampling":
             a["DB_INFO_PATH"] = str(root / "waymo_dbinfos_train.pkl")
+            a["SEED"] = seed         # the sampler's draws, as the rest
     path = root / "centerpoint_5sweeps_tree.yaml"
     # the list in flow style: JSON is a flow collection of the subset
     path.write_text(f"_BASE_CONFIG_: {TREE_BASE}\n"
@@ -1989,11 +2015,10 @@ def profiled_calls(cls, name, out):
         setattr(cls, name, orig)
 
 
-def run_train_det(device, fixed_step_ms):
-    """Phase 12.  Returns ({kernel name: record of its check at the new
-    shapes}, {kernel name: launches a step})."""
-    import tempfile
-
+def run_train_det(device, fixed_step_ms, tmp):
+    """Phase 12 in the directory `tmp` (the tree goes to tmp/waymo, the
+    experiment to tmp/output).  Returns ({kernel name: record of its check
+    at the new shapes}, {kernel name: launches a step}, the tree's yaml)."""
     import torch
     from detzero_tpu_torch.core.checkpoint import CheckpointManager
     from detzero_tpu_torch.data.waymo_dataset import build_dataloader
@@ -2004,99 +2029,102 @@ def run_train_det(device, fixed_step_ms):
     cwd = os.getcwd()
     os.chdir(REPO)        # the yamls' _BASE_CONFIG_ paths are relative
     try:
-        with tempfile.TemporaryDirectory(prefix="waymo_tree_") as tmp:
+        t0 = time.perf_counter()
+        yaml_path = write_waymo_tree(Path(tmp) / "waymo")
+        print(f"[train_det] wrote {TREE_FRAMES} frames of {TREE_POINTS} "
+              f"points, {TREE_OBJECTS} objects each, in "
+              f"{time.perf_counter() - t0:.1f} s")
+        cfg = common.load_config(common.base_parser("").parse_args(
+            ["--cfg_file", str(yaml_path)]))
+
+        # the loader alone, and the new shapes on its first batch
+        dataset = common.build_detection_dataset(
+            cfg, training=True, rng=np.random.RandomState(0))
+        loader = build_dataloader(dataset, TRAIN_BATCH, shuffle=True,
+                                  num_workers=2)
+        times, first = [], None
+        t0 = time.perf_counter()
+        for b in loader(0):
+            times.append((time.perf_counter() - t0) * 1e3)
+            first = first or b
             t0 = time.perf_counter()
-            yaml_path = write_waymo_tree(Path(tmp) / "waymo")
-            print(f"[train_det] wrote {TREE_FRAMES} frames of {TREE_POINTS} "
-                  f"points, {TREE_OBJECTS} objects each, in "
-                  f"{time.perf_counter() - t0:.1f} s")
-            cfg = common.load_config(common.base_parser("").parse_args(
-                ["--cfg_file", str(yaml_path)]))
+        if len(times) != LOADER_BATCHES:
+            raise AssertionError(f"loader gave {len(times)} batches")
+        loader_ms = sum(times) / len(times)
+        print(f"[train_det] loader: {', '.join(f'{t:.1f}' for t in times)}"
+              f" ms a batch; points valid "
+              f"{first['points_valid'].sum(1).tolist()} of "
+              f"{first['points'].shape[1]}, GT "
+              f"{first['gt_valid'].sum(1).tolist()} (width "
+              f"{first['gt_boxes'].shape[2]})")
+        rec, kept = check_train_det_shapes(cfg, first, device)
 
-            # the loader alone, and the new shapes on its first batch
-            dataset = common.build_detection_dataset(
-                cfg, training=True, rng=np.random.RandomState(0))
-            loader = build_dataloader(dataset, TRAIN_BATCH, shuffle=True,
-                                      num_workers=2)
-            times, first = [], None
-            t0 = time.perf_counter()
-            for b in loader(0):
-                times.append((time.perf_counter() - t0) * 1e3)
-                first = first or b
-                t0 = time.perf_counter()
-            if len(times) != LOADER_BATCHES:
-                raise AssertionError(f"loader gave {len(times)} batches")
-            loader_ms = sum(times) / len(times)
-            print(f"[train_det] loader: {', '.join(f'{t:.1f}' for t in times)}"
-                  f" ms a batch; points valid "
-                  f"{first['points_valid'].sum(1).tolist()} of "
-                  f"{first['points'].shape[1]}, GT "
-                  f"{first['gt_valid'].sum(1).tolist()} (width "
-                  f"{first['gt_boxes'].shape[2]})")
-            rec, kept = check_train_det_shapes(cfg, first, device)
+        # one loader thread (beside the trainer's prefetch thread): the
+        # samples' augmentation draws from one RandomState, so two threads
+        # would interleave its draws differently in every run, and phase
+        # 13's load depends on the checkpoint these steps write
+        out = Path(tmp) / "output"
+        args = ["--cfg_file", str(yaml_path), "--device", str(device),
+                "--workers", "0", "--output_dir", str(out),
+                "--log_every", "1"]
+        exp = out / yaml_path.stem / "default" / "ckpt"
+        want = step_launches()
 
-            out = Path(tmp) / "output"
-            args = ["--cfg_file", str(yaml_path), "--device", str(device),
-                    "--workers", "2", "--output_dir", str(out),
-                    "--log_every", "1"]
-            exp = out / yaml_path.stem / "default" / "ckpt"
-            want = step_launches()
+        def run(max_steps, n_steps):
+            reset_counts()
+            trainer = train_det.main(args + ["--max_steps",
+                                             str(max_steps)])
+            torch.cuda.synchronize()
+            got = read_counts()
+            if got != {k: n_steps * v for k, v in want.items()}:
+                raise AssertionError(f"train_det to step {max_steps}: "
+                                     f"launches {got}, expected "
+                                     f"{n_steps} x {want}")
+            if trainer.step_count != max_steps:
+                raise AssertionError(f"train_det ended at step "
+                                     f"{trainer.step_count}, not "
+                                     f"{max_steps}")
+            return trainer
 
-            def run(max_steps, n_steps):
-                reset_counts()
-                trainer = train_det.main(args + ["--max_steps",
-                                                 str(max_steps)])
-                torch.cuda.synchronize()
-                got = read_counts()
-                if got != {k: n_steps * v for k, v in want.items()}:
-                    raise AssertionError(f"train_det to step {max_steps}: "
-                                         f"launches {got}, expected "
-                                         f"{n_steps} x {want}")
-                if trainer.step_count != max_steps:
-                    raise AssertionError(f"train_det ended at step "
-                                         f"{trainer.step_count}, not "
-                                         f"{max_steps}")
-                return trainer
+        run(4, 4)          # the trainer is freed at once
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        trainer = run(6, 2)
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        lines = [json.loads(x) for x in
+                 (exp / "metrics.jsonl").read_text().splitlines()]
+        if [x["step"] for x in lines] != list(range(1, 7)):
+            raise AssertionError(f"metrics.jsonl steps "
+                                 f"{[x['step'] for x in lines]}: the "
+                                 f"second run did not resume at 4")
+        if not all(np.isfinite(v) for x in lines for v in x.values()):
+            raise AssertionError("metrics.jsonl holds a value that is "
+                                 "not finite")
+        saved, step = CheckpointManager(exp).restore_any()
+        live = trainer.model.state_dict()
+        if step != 6 or saved["model"].keys() != live.keys() or not all(
+                torch.equal(saved["model"][k], v.cpu())
+                for k, v in live.items()):
+            raise AssertionError(f"checkpoint of step {step} differs "
+                                 f"from the live model")
+        t0 = time.perf_counter()
+        trainer.save()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_bytes = trainer.ckpt.path(6).stat().st_size
+        fit_ms = [x["ms_per_it"] for x in lines[4:]]
+        for x in lines:
+            print(f"[train_det] metrics step {x['step']}: loss "
+                  f"{x['loss']:.4f}, gnorm {x['gnorm']:.4f}, "
+                  f"{x['ms_per_it']:.1f} ms/it")
+        del trainer
+        torch.cuda.empty_cache()
 
-            run(4, 4)          # the trainer is freed at once
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
-            trainer = run(6, 2)
-            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-            lines = [json.loads(x) for x in
-                     (exp / "metrics.jsonl").read_text().splitlines()]
-            if [x["step"] for x in lines] != list(range(1, 7)):
-                raise AssertionError(f"metrics.jsonl steps "
-                                     f"{[x['step'] for x in lines]}: the "
-                                     f"second run did not resume at 4")
-            if not all(np.isfinite(v) for x in lines for v in x.values()):
-                raise AssertionError("metrics.jsonl holds a value that is "
-                                     "not finite")
-            saved, step = CheckpointManager(exp).restore_any()
-            live = trainer.model.state_dict()
-            if step != 6 or saved["model"].keys() != live.keys() or not all(
-                    torch.equal(saved["model"][k], v.cpu())
-                    for k, v in live.items()):
-                raise AssertionError(f"checkpoint of step {step} differs "
-                                     f"from the live model")
-            t0 = time.perf_counter()
-            trainer.save()
-            save_ms = (time.perf_counter() - t0) * 1e3
-            ckpt_bytes = trainer.ckpt.path(6).stat().st_size
-            fit_ms = [x["ms_per_it"] for x in lines[4:]]
-            for x in lines:
-                print(f"[train_det] metrics step {x['step']}: loss "
-                      f"{x['loss']:.4f}, gnorm {x['gnorm']:.4f}, "
-                      f"{x['ms_per_it']:.1f} ms/it")
-            del trainer
-            torch.cuda.empty_cache()
-
-            with profiled_calls(Trainer, "fit", {}) as prof:
-                run(8, 2)
-            idle = 1.0 - prof["busy_ms"] / prof["wall_ms"]
-            print(f"[train_det] fit to step 8 under torch.profiler: wall "
-                  f"{prof['wall_ms']:.1f} ms, card busy "
-                  f"{prof['busy_ms']:.1f} ms, idle share {idle:.3f}")
+        with profiled_calls(Trainer, "fit", {}) as prof:
+            run(8, 2)
+        idle = 1.0 - prof["busy_ms"] / prof["wall_ms"]
+        print(f"[train_det] fit to step 8 under torch.profiler: wall "
+              f"{prof['wall_ms']:.1f} ms, card busy "
+              f"{prof['busy_ms']:.1f} ms, idle share {idle:.3f}")
     finally:
         os.chdir(cwd)
 
@@ -2113,7 +2141,315 @@ def run_train_det(device, fixed_step_ms):
                                     enumerate(levels))
         for i, levels in enumerate(kept)))
     print(f"[train_det] launches a step: {want}")
-    return rec, want
+    return rec, want, yaml_path
+
+
+# phase 13: test_det and the tracker on phase 12's tree and checkpoint.
+# The checkpoint has trained 8 steps from random weights, which keep no box
+# above the flagship's score threshold of 0.1 (phase 4): test_det keeps
+# every box of positive score instead, at most 64 a sample, so that WBF,
+# the evaluator and the tracker get real detections in bounded time (the
+# tracker is numpy; 768 boxes a frame take it minutes a frame).
+DET_SET = ["MODEL.POST_PROCESSING.SCORE_THRESH", "0.0",
+           "MODEL.POST_PROCESSING.NMS_POST_MAXSIZE", "64"]
+TTA_VARIANTS = 15            # the original and waymo_5sweeps.yaml's 14
+TTA_FRAMES = 2               # --max_batches under TTA (a frame a batch)
+TRACK_FRAMES = 200           # a Waymo segment: 20 s at 10 Hz
+TRACK_NOISE_M = 0.1          # the box-only sequence's centre noise
+TRACK_NOISE_RAD = 0.02       # and heading noise
+TRACK_DROP = 0.05            # share of detections dropped
+TRACK_CFG = "configs/tk_model_cfgs/waymo_detzero_track.yaml"
+# the tracker on test_det's result: the 8-step checkpoint's boxes need not
+# clear the tracker's SCORE_THRESH (0.1) nor recur in 5 of the 8 frames
+# (LEAST_AGE), so every box may start a track and every track is kept
+TRACK_SET = ["MODEL.TRACKING.SCORE_THRESH", "0.0",
+             "MODEL.POST_PROCESSING.LEAST_AGE", "1"]
+
+
+def global_boxes(boxes, pose):
+    """(N, 7+) lidar-frame boxes -> (N, 7) in the frame of `pose`."""
+    out = np.array(boxes, float)[:, :7]
+    out[:, :3] = out[:, :3] @ pose[:3, :3].T + pose[:3, 3]
+    out[:, 6] += np.arctan2(pose[1, 0], pose[0, 0])
+    return out
+
+
+def box_only_sequence(seed=0):
+    """A box-only detection sequence of TRACK_FRAMES frames (no points):
+    the 48 objects of the tree generator's frame 0 carried at their
+    velocities (the generator's displacement a frame), seeded noise of
+    TRACK_NOISE_M on the centre and TRACK_NOISE_RAD on the heading,
+    TRACK_DROP of the detections dropped, scores U(0.3, 1), an identity
+    pose.  Returns (det_annos, {seq: GT frames in eval_track's layout})."""
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.data.waymo_dataset import SyntheticWaymoDataset
+
+    cfg = cfg_from_yaml_file(TREE_BASE, Config())
+    cfg.update(SYNTHETIC_POINTS=TREE_POINTS, SYNTHETIC_OBJECTS=TREE_OBJECTS,
+               SYNTHETIC_SEED=seed)
+    gen = SyntheticWaymoDataset(cfg, cfg["CLASS_NAMES"], training=False)
+    _, b0, names = gen.generate_scene(0)
+    step = gen.generate_scene(1)[1][:, :2] - b0[:, :2]
+    rng = np.random.RandomState(seed)
+    seq = "segment-boxes_000"
+    dets, gt = [], []
+    for f in range(TRACK_FRAMES):
+        boxes = b0.astype(float)
+        boxes[:, :2] += step * f
+        gt.append({"boxes": boxes.copy(), "obj_ids": np.arange(len(boxes))})
+        boxes[:, :3] += rng.randn(len(boxes), 3) * TRACK_NOISE_M
+        boxes[:, 6] += rng.randn(len(boxes)) * TRACK_NOISE_RAD
+        keep = rng.rand(len(boxes)) >= TRACK_DROP
+        dets.append({"name": names[keep],
+                     "score": rng.uniform(0.3, 1.0, int(keep.sum())),
+                     "boxes_lidar": boxes[keep], "frame_id": f,
+                     "sequence_name": seq, "pose": np.eye(4)})
+    return dets, {seq: gt}
+
+
+def track_and_eval(tag, data_path, gt, out_dir, min_tracks, overrides=()):
+    """run_track (with `overrides` to the tracker's config) then
+    eval_track on one result pickle; prints tracks, frames/s and the
+    metrics, and fails on fewer than `min_tracks` tracks or a metric that
+    is not finite.  The tracker is host code: it must launch no kernel."""
+    import pickle
+
+    from detzero_tpu_torch.tools import eval_track, run_track
+
+    n_frames = sum(len(v) for v in gt.values())
+    gt_path = Path(out_dir) / f"gt_{tag}.pkl"
+    gt_path.parent.mkdir(parents=True, exist_ok=True)
+    gt_path.write_bytes(pickle.dumps(gt))
+    reset_counts()
+    t0 = time.perf_counter()
+    tracked = run_track.main(["--cfg_file", TRACK_CFG, "--data_path",
+                              str(data_path), "--output_dir",
+                              str(Path(out_dir) / tag), "--workers", "2",
+                              *(["--set", *overrides] if overrides else [])])
+    dt = time.perf_counter() - t0
+    metrics = eval_track.main(["--track_path", str(tracked["track_path"]),
+                               "--gt_path", str(gt_path)])
+    n_tracks = sum(len(v["tracks"]) for v in tracked["tracks"].values())
+    print(f"[tracking] {tag}: {n_frames} frames, {n_tracks} tracks in "
+          f"{dt * 1e3:.1f} ms, {n_frames / dt:.2f} frames/s; " + ", ".join(
+              f"{k} {v:.4f}" for k, v in metrics.items()))
+    if any(read_counts().values()):
+        raise AssertionError(f"tracking launched kernels: {read_counts()}")
+    if n_tracks < min_tracks:
+        raise AssertionError(f"{tag}: {n_tracks} tracks")
+    if set(metrics) != {"recall", "precision", "MOTA", "MOTP"} or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{tag}: eval_track metrics {metrics}")
+    return n_frames / dt, metrics
+
+
+def loader_ms_a_frame(cfg, native):
+    """ms a frame of one pass of test_det's loader over the test split
+    (batch 2, 2 threads), on the native or the numpy sweep reader."""
+    from detzero_tpu_torch.core.config import Config
+    from detzero_tpu_torch.data import waymo_dataset
+    from detzero_tpu_torch.tools import common
+
+    cfg = Config(cfg)
+    cfg["USE_NATIVE_LOADER"] = native
+    ds = common.build_detection_dataset(cfg, training=False)
+    loader = waymo_dataset.build_dataloader(ds, TRAIN_BATCH, shuffle=False,
+                                            num_workers=2, drop_last=False)
+    before = waymo_dataset.NATIVE_SAMPLES
+    t0 = time.perf_counter()
+    n = sum(len(b["points"]) for b in loader(0))
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    if waymo_dataset.NATIVE_SAMPLES - before != (n if native else 0):
+        raise AssertionError("the loader did not take the path asked for")
+    return ms
+
+
+def run_test_det(device, tmp, yaml_path):
+    """Phase 13: `test_det.main` on phase 12's tree (split val, the same 8
+    frames) and newest checkpoint, then with TTA, WBF "members" on the
+    card against the CPU, the evaluator on the tree's own GT, and the
+    tracker on test_det's result and on a box-only sequence.  Returns
+    {path: {kernel name: launches}}."""
+    import pickle
+
+    import torch
+    from detzero_tpu_torch.data import tta, waymo_dataset
+    from detzero_tpu_torch.tools import common, test_det
+
+    smi = nvidia_smi_line()
+    out = Path(tmp) / "output"
+    args = ["--cfg_file", str(yaml_path), "--device", str(device),
+            "--workers", "2", "--output_dir", str(out)]
+    per_sample = {"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
+                  "rowpad_nbr": NBR_LAUNCHES, "nms_walk": 1}
+    by_path = {}
+
+    def counted(path, extra, frames, samples):
+        reset_counts()
+        before = waymo_dataset.NATIVE_SAMPLES
+        res = test_det.main(args + extra)
+        torch.cuda.synchronize()
+        got = read_counts()
+        t = res["timings"]
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update({k: v * samples for k, v in per_sample.items()})
+        if got != want or t["samples"] != samples:
+            raise AssertionError(f"{path}: launches {got} over "
+                                 f"{t['samples']} samples, expected {want}")
+        native = waymo_dataset.NATIVE_SAMPLES - before
+        if (t["frames"], native) != (frames, frames):
+            raise AssertionError(f"{path}: {t['frames']} frames, {native} "
+                                 f"read natively, expected {frames}")
+        by_path[path] = got
+        kept = sum(len(d["name"]) for d in res["det_annos"])
+        wall = t["load_s"] + t["predict_s"] + t["wbf_s"]
+        print(f"[test_det] {path}: {frames} frames ({samples} samples) "
+              f"from checkpoint step {res['step']}, {kept} boxes; "
+              f"{frames / wall:.3f} frames/s from data; loader wait "
+              f"{t['load_s'] * 1e3 / frames:.1f}, predict "
+              f"{t['predict_s'] * 1e3 / frames:.1f}, WBF "
+              f"{t['wbf_s'] * 1e3 / frames:.1f} ms a frame; launches {got}")
+        return res
+
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        res = counted("test_det", ["--save_to_file", "--set", *DET_SET],
+                      TREE_FRAMES, TREE_FRAMES)
+        print("[test_det] evaluation:\n" + res["table"])
+        cfg = common.load_config(common.base_parser("").parse_args(
+            ["--cfg_file", str(yaml_path)]))
+        native_ms = loader_ms_a_frame(cfg, True)
+        numpy_ms = loader_ms_a_frame(cfg, False)
+        print(f"[test_det] {smi}: loader alone, native {native_ms:.1f} "
+              f"against numpy {numpy_ms:.1f} ms a frame (batch "
+              f"{TRAIN_BATCH}, 2 threads, {TREE_FRAMES} frames)")
+
+        # TTA: each frame's 15 variants through predict, fused by WBF;
+        # the variants' boxes of the first frame kept for "members"
+        variants = []
+        fuse = test_det.fuse_tta
+
+        def keep_variants(dicts, batch, class_names):
+            if not variants:
+                variants.extend(
+                    (tta.invert_boxes(d["boxes_lidar"], n), d["name"],
+                     d["score"]) for d, n in zip(dicts, batch["tta_name"]))
+            return fuse(dicts, batch, class_names)
+
+        test_det.fuse_tta = keep_variants
+        try:
+            tta_res = counted("test_det_tta",
+                              ["--max_batches", str(TTA_FRAMES), "--set",
+                               *DET_SET, "TTA", "True"], TTA_FRAMES,
+                              TTA_FRAMES * TTA_VARIANTS)
+        finally:
+            test_det.fuse_tta = fuse
+        if len(variants) != TTA_VARIANTS:
+            raise AssertionError(f"{len(variants)} TTA variants")
+        wbf_ms = tta_res["timings"]["wbf_s"] * 1e3 / TTA_FRAMES
+        print(f"[test_det] {smi}: TTA WBF {wbf_ms:.1f} ms a frame over "
+              f"{TTA_VARIANTS} variants")
+
+        by_path["wbf_members"] = check_members(variants, device)
+        check_gt_as_detections(cfg)
+
+        # the tracker on test_det's result, and on a box-only segment
+        ds = common.build_detection_dataset(cfg, training=False)
+        seq = ds.infos[0]["point_cloud"]["lidar_sequence"]
+        gt = {seq: [{"boxes": global_boxes(i["annos"]["gt_boxes_lidar"],
+                                           i["pose"]),
+                     "obj_ids": np.arange(len(i["annos"]["name"]))}
+                    for i in ds.infos]}
+        top = max((float(d["score"].max()) for d in res["det_annos"]
+                   if len(d["score"])), default=0.0)
+        print(f"[tracking] test_det's result: top score {top:.4f}; "
+              f"tracker overrides {TRACK_SET}")
+        track_and_eval("test_det", res["result_path"], gt, out / "track",
+                       min_tracks=1, overrides=TRACK_SET)
+        dets, gt = box_only_sequence()
+        data = out / "track" / "boxes_result.pkl"
+        data.write_bytes(pickle.dumps(dets))
+        fps, _ = track_and_eval("box_only", data, gt, out / "track",
+                                min_tracks=TREE_OBJECTS // 2)
+        print(f"[tracking] {smi}: box-only {TRACK_FRAMES} frames x "
+              f"{TREE_OBJECTS} objects: {fps:.2f} frames/s")
+    finally:
+        os.chdir(cwd)
+    return by_path
+
+
+def check_members(variants, device):
+    """WBF "members" on one TTA frame's boxes, class by class, on the card
+    against the same call on the CPU: equal clusters and scores, boxes
+    within 1e-4, one K7 launch a class of more than 32 boxes.  Returns
+    {kernel name: launches}."""
+    import torch
+    from detzero_tpu_torch.ops import wbf
+
+    boxes = np.concatenate([v[0] for v in variants])
+    names = np.concatenate([v[1] for v in variants])
+    scores = np.concatenate([v[2] for v in variants])
+    total = dict.fromkeys(COUNTERS, 0)
+    big = 0
+    for cls in ("Vehicle", "Pedestrian", "Cyclist"):
+        m = names == cls
+        kw = dict(iou_thresh=wbf.DEFAULT_IOU_THRESH[cls], iou_mode="members",
+                  n_models=TTA_VARIANTS)
+        reset_counts()
+        t0 = time.perf_counter()
+        card = wbf.weighted_boxes_fusion_3d(boxes[m], scores[m],
+                                            device=device, **kw)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        got = read_counts()
+        t0 = time.perf_counter()
+        cpu = wbf.weighted_boxes_fusion_3d(boxes[m], scores[m],
+                                           device="cpu", **kw)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        n = int((scores[m] > 0).sum())
+        big += n > 32
+        want = dict.fromkeys(COUNTERS, 0)
+        want["boxes_overlap_bev"] = int(n > 32)
+        if got != want:
+            raise AssertionError(f"members {cls} ({n} boxes): launches "
+                                 f"{got}, expected {want}")
+        err = float(np.abs(card[0] - cpu[0]).max()) if n else 0.0
+        if card[2] != cpu[2] or not np.array_equal(card[1], cpu[1]) \
+                or err > 1e-4:
+            raise AssertionError(f"members {cls}: the card's clusters or "
+                                 f"boxes differ from the CPU's (max abs "
+                                 f"box err {err})")
+        print(f"[wbf] members {cls}: {n} boxes -> {len(card[2])} clusters, "
+              f"equal on the card and the CPU (max abs box err {err:.3g}); "
+              f"{card_ms:.1f} ms with the card's IoU, {cpu_ms:.1f} ms with "
+              f"the CPU's")
+        for k, v in got.items():
+            total[k] += v
+    if not big:
+        raise AssertionError("no class of the TTA frame has more than 32 "
+                             "boxes: members took no K7 launch")
+    return total
+
+
+def check_gt_as_detections(cfg):
+    """The evaluator on the tree's own GT offered as detections (score 1):
+    AP 1.0 at L1 and L2 for every class present."""
+    from detzero_tpu_torch.tools import common
+
+    ds = common.build_detection_dataset(cfg, training=False)
+    annos = [{"name": i["annos"]["name"],
+              "score": np.ones(len(i["annos"]["name"])),
+              "boxes_lidar": i["annos"]["gt_boxes_lidar"],
+              "frame_id": i["point_cloud"]["sample_idx"]} for i in ds.infos]
+    _, res = ds.evaluation(annos, cfg["CLASS_NAMES"])
+    present = sorted(set(np.concatenate([a["name"] for a in annos])))
+    for cls in present:
+        if abs(res[cls]["AP_L1"] - 1) > 1e-9 or \
+                abs(res[cls]["AP_L2"] - 1) > 1e-9:
+            raise AssertionError(f"GT as detections: {cls} {res[cls]}")
+    print("[test_det] GT as detections: AP_L1 = AP_L2 = 1.0 for " +
+          ", ".join(present))
 
 
 def check_train_det_shapes(cfg, batch, device):
@@ -2170,12 +2506,26 @@ def main():
     print(f"[device] {smi}; {torch.cuda.get_device_name(0)}, capability "
           f"{cap[0]}.{cap[1]}, {torch.cuda.device_count()} device(s)")
 
-    # 2. build
+    # 2. build: the CUDA kernels, and beside them the native sweep loader
+    # (g++) in a thread
+    import threading
+
+    from detzero_tpu_torch import native
+
     t0 = time.time()
+    built = {}
+    gxx = threading.Thread(target=lambda: built.update(
+        lib=native.build(), s=time.time() - t0))
+    gxx.start()
     so = _build.build()
     _build.lib()
     print(f"[build] {so.relative_to(_build.BUILD_ROOT.parent.parent)} in "
           f"{time.time() - t0:.1f} s")
+    gxx.join()
+    if "lib" not in built:
+        native.build()          # raises g++'s error
+    native._load()
+    print(f"[build] {built['lib'].relative_to(REPO)} in {built['s']:.1f} s")
     print_ptxas((so.parent / "ptxas.log").read_text())
 
     # 3. kernels at the flagship path's shapes
@@ -2213,10 +2563,15 @@ def main():
         run_sliding_train(device, warm)
     torch.cuda.empty_cache()
 
-    # 12. the training entry point on a Waymo-layout tree
-    det_rec, by_path["train_det"] = run_train_det(device, step_ms)
-    for name, r in det_rec.items():
-        rec[name]["train_det"] = r
+    # 12. and 13. the training entry point on a Waymo-layout tree, then
+    # the inference entry point and the tracker on its checkpoint
+    with tempfile.TemporaryDirectory(prefix="waymo_tree_") as tmp:
+        det_rec, by_path["train_det"], yaml_path = run_train_det(
+            device, step_ms, tmp)
+        for name, r in det_rec.items():
+            rec[name]["train_det"] = r
+        torch.cuda.empty_cache()
+        by_path.update(run_test_det(device, tmp, yaml_path))
 
     # result lines
     kernels = []

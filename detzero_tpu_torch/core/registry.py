@@ -43,6 +43,7 @@ class Registry:
         return self._registry.keys()
 
 
-# the port registers its datasets; the reference's other registries come
-# with the modules that fill them
+# the port's datasets and the tracker's motion filters; the reference's
+# other registries come with the modules that fill them
 DATASETS = Registry("datasets")
+MOTION_FILTERS = Registry("motion_filters")

@@ -8,12 +8,12 @@ Mirrors the reference's data layout (SURVEY layer map 'Data layout'):
 
 Port of detzero_tpu/data/waymo_dataset.py.  WaymoDetectionDataset loads
 the info pkls of a split and assembles multi-sweep samples through
-DatasetTemplate (merge_sweeps / prepare_data).  It reads the sweeps with
-numpy `merge_sweeps` only: the reference's ctypes loader
-(detzero_tpu/native, USE_NATIVE_LOADER) is ported with the offboard
-daemon, and the reference takes this same numpy path where that library
-is not built (tests/test_native_loader.py holds the two paths equal).
-`evaluation` raises until the evaluator (pipeline/evaluator.py) is ported.
+DatasetTemplate.  Like the reference it reads the sweeps with the native
+C++ loader (detzero_tpu_torch/native) when USE_NATIVE_LOADER is on (the
+default) and the library builds, else with numpy `merge_sweeps`;
+`NATIVE_SAMPLES` counts the samples the native path read.  `evaluation`
+scores detections with the Waymo-protocol evaluator
+(pipeline/evaluator.py).
 
 SyntheticWaymoDataset generates self-consistent random scenes with the same
 schema, so every CLI/train path runs end-to-end without the dataset.
@@ -22,6 +22,7 @@ schema, so every CLI/train path runs end-to-end without the dataset.
 from __future__ import annotations
 
 import pickle
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -31,11 +32,31 @@ from detzero_tpu_torch.data.dataset import (
     DatasetTemplate, get_sweep_idxs, merge_sweeps,
 )
 
-# the detection evaluator (waymo_dataset.py:113-130 of the reference,
-# pipeline/evaluator.py) comes with the port's test_det slice
-_NO_EVALUATOR = ("detection evaluation is not ported yet: it comes with the "
-                 "tools/test_det.py slice (the evaluator, pipeline/"
-                 "evaluator.py)")
+# samples that __getitem__ read through the native loader (the loader's
+# threads add under the lock)
+NATIVE_SAMPLES = 0
+_NATIVE_LOCK = threading.Lock()
+
+
+def _count_native():
+    global NATIVE_SAMPLES
+    with _NATIVE_LOCK:
+        NATIVE_SAMPLES += 1
+
+
+def _evaluate(det_annos, gts, class_names, ap_mode):
+    """(table, results) of the Waymo-protocol evaluator.  Boxes with
+    velocities (9 wide), detected or GT, are scored on their first 7
+    columns; the reference's evaluation raises on them."""
+    from detzero_tpu_torch.pipeline.evaluator import (
+        evaluate_detection, format_results_table,
+    )
+    preds = [{**d, "boxes_lidar": np.asarray(d["boxes_lidar"])[:, :7]}
+             for d in det_annos]
+    gts = [{**g, "gt_boxes": g["gt_boxes"][:, :7]} for g in gts]
+    res = evaluate_detection(preds, gts, class_names=tuple(class_names),
+                             ap_mode=ap_mode)
+    return format_results_table(res), res
 
 
 @DATASETS.register("WaymoDetectionDataset")
@@ -71,11 +92,13 @@ class WaymoDetectionDataset(DatasetTemplate):
     def __len__(self):
         return len(self.infos)
 
-    def get_points(self, info):
+    def _point_path(self, info):
         seq = info["point_cloud"]["lidar_sequence"]
         idx = info["point_cloud"]["sample_idx"]
-        return np.load(self.root / "waymo_processed_data" / seq
-                       / f"{idx:04d}.npy")
+        return self.root / "waymo_processed_data" / seq / f"{idx:04d}.npy"
+
+    def get_points(self, info):
+        return np.load(self._point_path(info))
 
     def __getitem__(self, index):
         info = self.infos[index]
@@ -84,10 +107,26 @@ class WaymoDetectionDataset(DatasetTemplate):
         sweep_infos = [self.infos[index - (cur_idx - si)] for si in sweep_idx]
         sweep_dts = [0.1 * (si - cur_idx) for si in sweep_idx]
 
-        points = merge_sweeps(
-            self.get_points(info), info["pose"],
-            [self.get_points(s) for s in sweep_infos],
-            [s["pose"] for s in sweep_infos], sweep_dts)
+        use_native = self.cfg.get("USE_NATIVE_LOADER", True)
+        if use_native:
+            from detzero_tpu_torch import native
+            use_native = native.available()
+        if use_native:
+            inv_cur = np.linalg.inv(info["pose"])
+            paths = [self._point_path(info)] + [self._point_path(s)
+                                                for s in sweep_infos]
+            rels = [np.eye(4, dtype=np.float32)] + [
+                (inv_cur @ s["pose"]).astype(np.float32) for s in sweep_infos]
+            budget = int(self.cfg.get("NUM_POINT_BUDGET", 200_000))
+            points, n = native.load_merged_sample(
+                paths, rels, [0.0] + sweep_dts, out_stride=6, budget=budget)
+            points = points[:n]
+            _count_native()
+        else:
+            points = merge_sweeps(
+                self.get_points(info), info["pose"],
+                [self.get_points(s) for s in sweep_infos],
+                [s["pose"] for s in sweep_infos], sweep_dts)
         data = {
             "points": points,
             "frame_id": info["point_cloud"]["sample_idx"],
@@ -101,7 +140,21 @@ class WaymoDetectionDataset(DatasetTemplate):
         return self.prepare_data(data)
 
     def evaluation(self, det_annos, class_names, **kwargs):
-        raise NotImplementedError(_NO_EVALUATOR)
+        """Waymo-protocol metrics of det_annos (the first len(det_annos)
+        infos' frames, in order) against the infos' GT: (table,
+        results)."""
+        gts = []
+        for info in self.infos[: len(det_annos)]:
+            annos = info.get("annos", {})
+            gts.append({
+                "gt_boxes": np.asarray(annos.get("gt_boxes_lidar",
+                                                 np.zeros((0, 7)))),
+                "name": np.asarray(annos.get("name", [])),
+                "num_points": np.asarray(annos.get("num_points_in_gt",
+                                                   np.zeros(0))),
+            })
+        return _evaluate(det_annos, gts, class_names,
+                         kwargs.get("ap_mode", "envelope"))
 
 
 @DATASETS.register("SyntheticWaymoDataset")
@@ -263,7 +316,16 @@ class SyntheticWaymoDataset(DatasetTemplate):
         return self.prepare_data(data)
 
     def evaluation(self, det_annos, class_names, **kwargs):
-        raise NotImplementedError(_NO_EVALUATOR)
+        """Metrics against the regenerated GT of each frame_id: (table,
+        results)."""
+        gts = []
+        for d in det_annos:
+            idx = int(d.get("frame_id", 0) or 0)
+            _, gt_boxes, gt_names = self.generate_scene(idx)
+            gts.append({"gt_boxes": gt_boxes, "name": gt_names,
+                        "num_points": np.full(len(gt_boxes), 120)})
+        return _evaluate(det_annos, gts, class_names,
+                         kwargs.get("ap_mode", "envelope"))
 
 
 def build_dataloader(dataset, batch_size: int, shuffle: bool, num_workers: int = 0,

@@ -209,10 +209,24 @@ def height_overlap(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
 
 
 def boxes_iou3d(boxes_a: np.ndarray, boxes_b: np.ndarray) -> np.ndarray:
-    """(N,7)x(M,7) 3D IoU (iou3d_nms_utils.py:74-107 semantics)."""
+    """(N,7)x(M,7) 3D IoU (iou3d_nms_utils.py:74-107 semantics).  The
+    polygon clip runs only on the pairs whose BEV circumcircles meet (1 mm
+    of slack) and whose heights overlap: every other pair's 3D overlap is
+    0 exactly, as the clip gives it, so the matrix equals the all-pairs
+    oracle's element for element at a fraction of its cost on scenes of
+    many boxes."""
     boxes_a, boxes_b = np.asarray(boxes_a), np.asarray(boxes_b)
-    ov_bev = boxes_overlap_bev(boxes3d_to_bev(boxes_a), boxes3d_to_bev(boxes_b))
-    ov3d = ov_bev * height_overlap(boxes_a, boxes_b)
+    bev_a, bev_b = boxes3d_to_bev(boxes_a), boxes3d_to_bev(boxes_b)
+    ov_h = height_overlap(boxes_a, boxes_b)
+    ra = 0.5 * np.hypot(bev_a[:, 2], bev_a[:, 3])
+    rb = 0.5 * np.hypot(bev_b[:, 2], bev_b[:, 3])
+    d = np.hypot(bev_a[:, None, 0] - bev_b[None, :, 0],
+                 bev_a[:, None, 1] - bev_b[None, :, 1])
+    ov_bev = np.zeros((len(boxes_a), len(boxes_b)))
+    near = (d <= ra[:, None] + rb[None, :] + 1e-3) & (ov_h > 0)
+    for i, j in zip(*np.nonzero(near)):
+        ov_bev[i, j] = rotated_overlap_bev(bev_a[i], bev_b[j])
+    ov3d = ov_bev * ov_h
     vol_a = np.prod(boxes_a[:, 3:6], axis=1)[:, None]
     vol_b = np.prod(boxes_b[:, 3:6], axis=1)[None, :]
     return ov3d / np.clip(vol_a + vol_b - ov3d, 1e-6, None)

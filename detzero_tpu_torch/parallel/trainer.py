@@ -23,7 +23,10 @@ from detzero_tpu_torch.core.optim import Optimizer
 
 class Trainer:
     """Owns a model, its `Optimizer` and the step count.
-    `model.loss(**batch)` returns (loss, aux dict).  `stage_hook`, as
+    `model.loss(**batch, generator=g)` returns (loss, aux dict); unless the
+    batch names its own, `g` is a torch.Generator on the model's device
+    that depends only on (seed, step), so a resumed run draws what an
+    unbroken one draws (the second stage's RoI subsample).  `stage_hook`, as
     `CenterPoint.stage_hook`, is called where the backward and the
     optimizer step begin.  With `ckpt_dir`, checkpoints go to that
     directory and metrics to `<ckpt_dir>/metrics.jsonl`."""
@@ -33,7 +36,7 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, optimizer: Optimizer,
                  ckpt_dir=None, logger=None, max_ckpt: int = 5,
                  log_every: int = 50, tb_dir=None, steps_per_call: int = 1,
-                 prefetch: int = 2):
+                 prefetch: int = 2, seed: int = 0):
         if int(steps_per_call) != 1:
             # the reference scans several steps in one jit call; the
             # port's counterpart is capturing steps in CUDA graphs
@@ -42,6 +45,7 @@ class Trainer:
                 "wait for CUDA graphs (ROADMAP queue 2 item 1)")
         self.model = model
         self.optimizer = optimizer
+        self.seed = int(seed)
         self.step_count = 0
         self.logger = logger
         self.ckpt = CheckpointManager(ckpt_dir, max_ckpt) if ckpt_dir \
@@ -70,7 +74,9 @@ class Trainer:
         `model.loss`).  Returns (loss, aux, gnorm) as detached tensors on
         the model's device, gnorm before clipping; nothing waits for the
         device."""
-        loss, aux = self.model.loss(**batch)
+        kwargs = dict(batch)
+        kwargs.setdefault("generator", self.step_generator())
+        loss, aux = self.model.loss(**kwargs)
         if self.stage_hook is not None:
             self.stage_hook("backward")
         self.optimizer.zero_grad()
@@ -80,6 +86,15 @@ class Trainer:
         gnorm = self.optimizer.step()
         self.step_count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, gnorm
+
+    def step_generator(self) -> torch.Generator:
+        """The generator of the step about to run: seeded with
+        seed * 1_000_003 + step, `step` the global step count before it
+        (the count the reference folds into PRNGKey(seed) with
+        jax.random.fold_in), on the model's device."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(self.seed * 1_000_003 + self.step_count)
+        return g
 
     # ------------------------------------------------------------------
     def state_dict(self):

@@ -29,8 +29,7 @@ def main(argv=None):
                         help="hard step cap (smoke runs)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the weights, the augmentation and "
-                             "torch's generator (the second stage's RoI "
-                             "draws)")
+                             "the second stage's RoI draws (with the step)")
     parser.add_argument("--steps_per_call", type=int, default=1,
                         help="optimizer steps a call (only 1 is ported)")
     parser.add_argument("--log_every", type=int, default=50,
@@ -64,7 +63,7 @@ def main(argv=None):
     trainer = Trainer(model, build_optimizer(opt_cfg, total_steps, model),
                       ckpt_dir=exp_dir / "ckpt", logger=logger,
                       log_every=args.log_every, tb_dir=exp_dir / "tb",
-                      steps_per_call=args.steps_per_call)
+                      steps_per_call=args.steps_per_call, seed=args.seed)
     trainer.resume()
 
     def batches():

@@ -7,7 +7,7 @@ augmentors, an in-memory GT database), in test mode and with TTA; the
 reference draws from numpy's global generator after np.random.seed(s), the
 port from RandomState(s).  Also merge_sweeps, the TTA inversion, the
 processor's sampling, translation, the polar encoder and the prediction
-dicts; and evaluation, which the port does not have yet, raises."""
+dicts and evaluation."""
 
 import copy
 
@@ -210,8 +210,13 @@ def test_polar_encoder():
 
 def test_prediction_dicts_and_no_evaluation(tree):
     """generate_prediction_dicts takes the port's tensors (the reference's
-    numpy arrays) and gives the reference's dicts; evaluation raises until
-    the evaluator is ported."""
+    numpy arrays) and gives the reference's dicts; evaluation gives the
+    reference's table and results: the synthetic dataset's exactly as the
+    reference's, the tree's as the reference's evaluator on the boxes and
+    the infos' GT cut to 7 columns (the reference's own evaluation raises
+    on 9-wide boxes, the tree's GT and the detections with velocity)."""
+    from detzero_tpu.pipeline import evaluator as ref_evaluator
+
     ref_batches, batches, ref_ds, ds = batches_of_both("tree", tree, False,
                                                        n=1)
     rng = np.random.RandomState(6)
@@ -223,8 +228,31 @@ def test_prediction_dicts_and_no_evaluation(tree):
     got = ds.generate_prediction_dicts(
         batches[0], {k: torch.from_numpy(v) for k, v in preds.items()})
     assert_same(ref, got)
-    for d in (ds, waymo_dataset.SyntheticWaymoDataset(
-            cfg_from_yaml_file(SYNTHETIC, Config()), cases.CLASS_NAMES,
-            training=False)):
-        with pytest.raises(NotImplementedError, match="test_det"):
-            d.evaluation(got, cases.CLASS_NAMES)
+    infos = [ds.infos[i] for i in batches[0]["frame_id"]]
+    for d, info in zip(got, infos):        # detections near the GT
+        d["boxes_lidar"][:3, :7] = info["annos"]["gt_boxes_lidar"][:3, :7]
+        d["name"][:3] = info["annos"]["name"][:3]
+    ds.infos = ref_ds.infos = infos
+    gts = [{"gt_boxes": i["annos"]["gt_boxes_lidar"][:, :7],
+            "name": i["annos"]["name"], "num_points": np.zeros(0)}
+           for i in infos]
+    want = ref_evaluator.evaluate_detection(
+        [{**d, "boxes_lidar": d["boxes_lidar"][:, :7]} for d in got], gts,
+        class_names=tuple(cases.CLASS_NAMES))
+    assert want["Vehicle"]["AP_L1"] > 0
+    assert ds.evaluation(got, cases.CLASS_NAMES) == (
+        ref_evaluator.format_results_table(want), want)
+    with pytest.raises(ValueError, match="reshape"):
+        ref_ds.evaluation(got, cases.CLASS_NAMES)
+    synth = [pkg.SyntheticWaymoDataset(load(SYNTHETIC, cls()),
+                                       cases.CLASS_NAMES, training=False)
+             for pkg, load, cls in ((ref_waymo, ref_cfg_from_yaml, RefConfig),
+                                    (waymo_dataset, cfg_from_yaml_file,
+                                     Config))]
+    for d, i in zip(got, (3, 17)):
+        d["frame_id"] = i
+        d["boxes_lidar"][:2, :7] = synth[1].generate_scene(i)[1][:2]
+    got = [{**d, "boxes_lidar": d["boxes_lidar"][:, :7]} for d in got]
+    for mode in ("envelope", "waymo101"):
+        a = synth[0].evaluation(got, cases.CLASS_NAMES, ap_mode=mode)
+        assert synth[1].evaluation(got, cases.CLASS_NAMES, ap_mode=mode) == a

@@ -1,6 +1,7 @@
 """detzero_tpu_torch imports neither jax, flax, yaml nor detzero_tpu
-(predict, one training step, the two-stage predict and loss, and one step
-of the training entry point from its config and loader run with them
+(predict, one training step, the two-stage predict and loss, one step of
+the training entry point from its config and loader, the inference entry
+point on its checkpoint and the tracker on its output run with them
 blocked; no source file of the package, nor chip_smoke.py or
 chip_profile.py, names them in an import), and on CPU tensors every
 kernel wrapper takes its plain version (no launch counted); on a tensor that is neither CPU nor CUDA a wrapper raises instead
@@ -12,11 +13,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from detzero_tpu_torch.ops import (iou_bev, nms, rowpad_conv, rowpad_nbr,
-                                   stream_vfe)
+                                   stream_vfe, wbf)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -46,6 +48,18 @@ MAIN_PATH = [
     "detzero_tpu_torch.data.augmentor", "detzero_tpu_torch.data.tta",
     "detzero_tpu_torch.data.dataset", "detzero_tpu_torch.data.waymo_dataset",
     "detzero_tpu_torch.tools.common", "detzero_tpu_torch.tools.train_det",
+    "detzero_tpu_torch.native", "detzero_tpu_torch.ops.wbf",
+    "detzero_tpu_torch.pipeline", "detzero_tpu_torch.pipeline.evaluator",
+    "detzero_tpu_torch.models.tracking",
+    "detzero_tpu_torch.models.tracking.association",
+    "detzero_tpu_torch.models.tracking.kalman",
+    "detzero_tpu_torch.models.tracking.post_process",
+    "detzero_tpu_torch.models.tracking.target_assign",
+    "detzero_tpu_torch.models.tracking.track_manager",
+    "detzero_tpu_torch.models.tracking.tracker",
+    "detzero_tpu_torch.tools.test_det", "detzero_tpu_torch.tools.run_track",
+    "detzero_tpu_torch.tools.eval_track",
+    "detzero_tpu_torch.tools.ensemble_dets",
 ]
 
 SCRIPT = """
@@ -98,15 +112,24 @@ loss2, _ = m2.loss(pts.expand(2, -1, -1), torch.ones(2, 512, dtype=torch.bool),
                    gb, torch.zeros(2, 4, dtype=torch.int32), gv,
                    generator=torch.Generator().manual_seed(1))
 loss2.backward()
-# the training entry point: config, synthetic dataset, loader, one step
+# the training entry point: config, synthetic dataset, loader, one step;
+# then the inference entry point on its checkpoint, one frame saved, and
+# the tracker on that frame
 import tempfile
-from detzero_tpu_torch.tools import train_det
+from detzero_tpu_torch.tools import run_track, test_det, train_det
 with tempfile.TemporaryDirectory() as tmp:
-    cli = train_det.main([
-        "--cfg_file", "configs/det_model_cfgs/centerpoint_synthetic_cpu.yaml",
-        "--device", "cpu", "--workers", "0", "--output_dir", tmp,
-        "--max_steps", "1", "--set", "MODEL.PILLAR_ROW_BUDGET", "16",
-        "MODEL.BEV_LAYER_NUMS", "[1, 1]"]).step_count
+    small = ["--set", "MODEL.PILLAR_ROW_BUDGET", "16",
+             "MODEL.BEV_LAYER_NUMS", "[1, 1]"]
+    common = ["--cfg_file",
+              "configs/det_model_cfgs/centerpoint_synthetic_cpu.yaml",
+              "--device", "cpu", "--workers", "0", "--output_dir", tmp]
+    cli = train_det.main(common + ["--max_steps", "1"] + small).step_count
+    det = test_det.main(common + ["--save_to_file", "--max_batches", "1"]
+                        + small)
+    tracked = run_track.main(["--data_path", str(det["result_path"]),
+                              "--output_dir", tmp + "/track"])
+    cli = [cli, det["step"], len(det["det_annos"]),
+           list(tracked["tracks"])]
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu",
                                     "yaml")
@@ -136,7 +159,7 @@ def test_port_imports_no_jax_and_cpu_takes_plain_versions():
     assert res["kept"] > 0
     assert res["finite"]
     assert res["two_stage"] == [[1, 8, 7], 8, True, True]
-    assert res["cli"] == 1
+    assert res["cli"] == [1, 1, 1, ["synthetic_000"]]
     assert res["launches"] == [0] * 10
 
 
@@ -208,6 +231,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         iou_bev.boxes_overlap_bev(torch.empty(4, 5, **meta),
                                   torch.empty(7, 5, **meta))
+    with pytest.raises(ValueError, match="CUDA"):    # WBF "members", n > 32
+        wbf._pairwise_iou3d(np.zeros((33, 7)), device="meta")
     assert [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
             rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
             iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,

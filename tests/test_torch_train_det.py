@@ -3,7 +3,8 @@ a whole (both packages' first loader batch through the reference's
 CenterPoint.loss and the port's Trainer.step, within 1e-4 relative, the
 bound of tests/test_torch_train_step.py), checkpoints (rotation, the
 shape-tolerant partial load, a resumed `fit` equal to an unbroken one bit
-for bit, and weights carried both ways between an orbax checkpoint of the
+for bit, one- and two-stage, the second stage's RoI draws a function of
+(seed, step), and weights carried both ways between an orbax checkpoint of the
 reference and a torch checkpoint of the port, with equal predictions), and
 the CLI (`detzero_tpu_torch.tools.train_det.main`: train, resume, and its
 refusals)."""
@@ -48,6 +49,9 @@ DECODE = dict(score_thresh=0.0, nms_thresh=0.3)
 # 128), 16 for the resume test's eight steps
 SMALL_CFG = dict(TRAIN_CFG, BEV_LAYER_NUMS=(1, 1), PILLAR_ROW_BUDGET=32)
 RESUME_CFG = dict(SMALL_CFG, PILLAR_ROW_BUDGET=16)
+# the PDV second stage as tests/test_torch_two_stage_train.py sizes it
+RESUME2_CFG = dict(RESUME_CFG, SECOND_STAGE=True, ROI_BUDGET=16,
+                   ROI_GRID_SIZE=3, ROI_ATTENTION=True)
 
 
 def tiny_model(seed=0, cfg=SMALL_CFG):
@@ -138,23 +142,24 @@ def test_load_params_partial_one_mismatch():
         assert torch.equal(v, keep if k == bad else src.state_dict()[k]), k
 
 
-def _fit(batches, total, ckpt_dir):
-    model = tiny_model(cfg=RESUME_CFG)
+def _fit(batches, total, ckpt_dir, cfg=RESUME_CFG):
+    model = tiny_model(cfg=cfg)
     trainer = Trainer(model, build_optimizer(FLAGSHIP_OPT, 4, model),
-                      ckpt_dir=ckpt_dir, log_every=1)
+                      ckpt_dir=ckpt_dir, log_every=1, seed=SEED)
     trainer.resume()
     trainer.fit(iter(batches), total)
     return trainer
 
 
-def test_resumed_fit_equals_unbroken(loader_batches, tmp_path):
+def _assert_resumed_equals_unbroken(batches, tmp_path, cfg):
     """2 steps, a new trainer resumed from their checkpoint, 2 more: the
     weights, BN statistics, optimizer and schedule state and the logged
-    losses equal those of 4 unbroken steps, bit for bit."""
-    whole = _fit(loader_batches, 4, tmp_path / "whole")
-    first = _fit(loader_batches[:2], 2, tmp_path / "split")
+    metrics equal those of 4 unbroken steps, bit for bit.  Returns the
+    logged lines."""
+    whole = _fit(batches, 4, tmp_path / "whole", cfg)
+    first = _fit(batches[:2], 2, tmp_path / "split", cfg)
     assert first.step_count == 2
-    resumed = _fit(loader_batches[2:], 4, tmp_path / "split")
+    resumed = _fit(batches[2:], 4, tmp_path / "split", cfg)
     assert resumed.step_count == 4
     a, b = whole.state_dict(), resumed.state_dict()
     for k, v in a["model"].items():
@@ -167,12 +172,49 @@ def test_resumed_fit_equals_unbroken(loader_batches, tmp_path):
         assert torch.equal(sa[i]["nu"], sb[i]["nu"])
     assert a["scheduler"] == b["scheduler"]
     assert whole.optimizer.lr == resumed.optimizer.lr
-    losses = [[json.loads(x)["loss"] for x in
-               (tmp_path / d / "metrics.jsonl").read_text().splitlines()]
-              for d in ("whole", "split")]
-    assert losses[0] == losses[1] and len(losses[0]) == 4
+    logs = [[json.loads(x) for x in
+             (tmp_path / d / "metrics.jsonl").read_text().splitlines()]
+            for d in ("whole", "split")]
+    drop = ("ms_per_it",)
+    assert [{k: v for k, v in x.items() if k not in drop} for x in logs[0]] \
+        == [{k: v for k, v in x.items() if k not in drop} for x in logs[1]]
+    assert len(logs[0]) == 4
     assert [p.name for p in sorted((tmp_path / "split").glob("*.pt"))] == [
         "ckpt_2.pt", "ckpt_4.pt"]
+    return logs[0]
+
+
+def test_resumed_fit_equals_unbroken(loader_batches, tmp_path):
+    _assert_resumed_equals_unbroken(loader_batches, tmp_path, RESUME_CFG)
+
+
+def test_resumed_two_stage_fit_equals_unbroken(loader_batches, tmp_path):
+    """The same with the PDV second stage, whose RoI subsample draws from
+    the trainer's generator of (seed, step): the logged RoI terms too."""
+    logs = _assert_resumed_equals_unbroken(loader_batches, tmp_path,
+                                           RESUME2_CFG)
+    assert {"roi_cls", "roi_reg"} <= logs[0].keys()
+
+
+def test_roi_draws_follow_the_step():
+    """The generator of a step draws what a new trainer with the same
+    seed draws at that step, and other numbers at the next step or under
+    another seed."""
+    model = tiny_model(cfg=RESUME2_CFG)
+    opt = build_optimizer(FLAGSHIP_OPT, 4, model)
+
+    def draws(seed, step):
+        trainer = Trainer(model, opt, seed=seed)
+        trainer.step_count = step
+        return model.roi_draws(2, trainer.step_generator())
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    assert same(draws(SEED, 3), draws(SEED, 3))
+    for other in (draws(SEED, 4), draws(SEED, 2), draws(SEED + 1, 3)):
+        assert not any(torch.equal(x, y)
+                       for x, y in zip(draws(SEED, 3), other))
 
 
 def test_fit_writes_a_profile(loader_batches, tmp_path):
