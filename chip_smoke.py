@@ -98,7 +98,24 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      is kept, TRACK_SET; at least one track) and on a box-only segment of
      200 frames of the generator's 48 objects (the tracker's own config;
      at least 24 tracks): tracks, frames/s, recall, precision, MOTA,
-     MOTP; no kernel launched.
+     MOTP; no kernel launched;
+ 14. refining from tracks: 4 sequences of 20 frames (160,000 points, 48
+     objects; SyntheticWaymoDataset seeds 0-3, posed as phase 12 poses
+     them) written to a temporary tree; the tracker on their GT offered
+     as detections (tracks, frames/s); `daemon.prepare_object_data` with
+     the GT (ms a frame; the native cropper's frame count must be all 80)
+     and `generate_iou_gt`, the per-class pickles and Vehicle's record
+     cache (`build_record_cache`: ms, bytes); GRM, PRM and CRM at the
+     width of configs/ref_model_cfgs/vehicle_{grm,prm,crm}.yaml on seeded
+     weights, forward and decode of one batch of the Vehicle records on
+     the card against the CPU (float32, within 1e-4 of scale, all finite,
+     the padded PRM queries included); `train_refine.main` for each yaml
+     at its batch to step 6 (finite losses, ms/step over steps 3-6, peak
+     memory, checkpoint bytes), then to step 8 resumed under
+     torch.profiler (idle share); `test_refine.main` for each with
+     --save_to_file, and under TTA for GRM and PRM (tracks/s, recall at
+     IoU 0.7 input -> output, printed); no kernel launched over the whole
+     phase, which must end within 120 s.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -1908,6 +1925,16 @@ FRAME_DT = 0.1               # s between Waymo frames (10 Hz)
 LOADER_BATCHES = 4           # one epoch of 8 frames at batch 2
 
 
+def ego_pose(f):
+    """The ego's (4, 4) lidar -> world pose at frame f: EGO_STEP_M along x
+    and EGO_YAW of turn a frame."""
+    yaw = EGO_YAW * f
+    pose = np.eye(4)
+    pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    pose[0, 3] = EGO_STEP_M * f
+    return pose
+
+
 def write_waymo_tree(root, seed=0):
     """Writes one sequence in the layout of detzero_tpu_torch/data/
     waymo_dataset.py under `root`: <seq>/NNNN.npy frames, the info pkl
@@ -1935,10 +1962,7 @@ def write_waymo_tree(root, seed=0):
         pts, boxes_w, names = gen.generate_scene(f)
         next_xy = gen.generate_scene(f + 1)[1][:, :2]
         yaw = EGO_YAW * f
-        pose = np.eye(4)
-        pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)],
-                        [np.sin(yaw), np.cos(yaw)]]
-        pose[0, 3] = EGO_STEP_M * f
+        pose = ego_pose(f)
         inv = np.linalg.inv(pose)
         lidar = np.full((len(pts), 6), -1.0, np.float32)
         lidar[:, :3] = pts[:, :3] @ inv[:3, :3].T + inv[:3, 3]
@@ -2480,6 +2504,317 @@ def check_train_det_shapes(cfg, batch, device):
     return rec, kept
 
 
+# phase 14: the refining stage from tracks (the README's "Full offboard
+# pipeline", steps 3 and 4) at the Vehicle configs' full width
+REFINE_SEQS = 4
+REFINE_FRAMES = 20
+REFINE_CFGS = {"grm": "configs/ref_model_cfgs/vehicle_grm.yaml",
+               "prm": "configs/ref_model_cfgs/vehicle_prm.yaml",
+               "crm": "configs/ref_model_cfgs/vehicle_crm.yaml"}
+REFINE_STEPS = 6
+REFINE_TTA = {"grm": 10, "prm": 18}          # the default variant lists
+REFINE_CLASSES = ("Vehicle", "Pedestrian", "Cyclist")   # the tracker's
+REFINE_PHASE_S = 120.0
+
+
+def write_refine_tree(root):
+    """REFINE_SEQS sequences of REFINE_FRAMES frames under `root`:
+    <seq>/NNNN.npy LIDAR frames (x, y, z, intensity, elongation, NLZ -1)
+    of the port's SyntheticWaymoDataset scenes (seeds 0, 1, ...; one
+    sequence's TREE_OBJECTS objects in all its frames), posed as phase 12
+    poses them (`ego_pose`).  Returns {seq: [{pose, names, boxes_global,
+    boxes_lidar} a frame]}."""
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.data.waymo_dataset import SyntheticWaymoDataset
+
+    seqs = {}
+    for seed in range(REFINE_SEQS):
+        cfg = cfg_from_yaml_file(TREE_BASE, Config())
+        cfg.update(SYNTHETIC_POINTS=TREE_POINTS,
+                   SYNTHETIC_OBJECTS=TREE_OBJECTS, SYNTHETIC_SEED=seed)
+        gen = SyntheticWaymoDataset(cfg, cfg["CLASS_NAMES"], training=False)
+        gen.FRAMES_PER_SEQ = REFINE_FRAMES
+        seq = f"segment-refine_{seed:03d}"
+        (Path(root) / seq).mkdir(parents=True)
+        frames = []
+        for f in range(REFINE_FRAMES):
+            pts, boxes_w, names = gen.generate_scene(f)
+            pose = ego_pose(f)
+            inv = np.linalg.inv(pose)
+            lidar = np.full((len(pts), 6), -1.0, np.float32)
+            lidar[:, :3] = pts[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+            lidar[:, 3:5] = pts[:, 3:5]
+            np.save(Path(root) / seq / f"{f:04d}.npy", lidar)
+            boxes = np.array(boxes_w[:, :7], np.float32)
+            boxes[:, :3] = boxes_w[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+            boxes[:, 6] -= EGO_YAW * f
+            frames.append({"pose": pose, "names": np.asarray(names),
+                           "boxes_global": np.asarray(boxes_w[:, :7]),
+                           "boxes_lidar": boxes})
+        seqs[seq] = frames
+    return seqs
+
+
+def refine_cfg(kind, data_path):
+    from detzero_tpu_torch.tools import common
+
+    return common.load_config(common.base_parser("").parse_args(
+        ["--cfg_file", REFINE_CFGS[kind], "--set", "DATA_PATH",
+         str(data_path)]))
+
+
+def check_refine_card_cpu(device, data_path):
+    """GRM, PRM and CRM at the Vehicle yamls' width on seeded weights:
+    forward and decode of one batch (the yaml's size) of the Vehicle eval
+    records on the card and on the CPU, float32 both.  Every output finite
+    (the padded PRM queries' rows included); each raw output and decoded
+    value within 1e-4 of the CPU's, relative to the CPU output's largest
+    magnitude (PRM's heading where the top two bin logits differ by more
+    than 1e-4: elsewhere the argmax may take either bin)."""
+    import torch
+    from detzero_tpu_torch.models.refining.batched import (
+        _SAMPLE_KEYS, forward_decode,
+    )
+    from detzero_tpu_torch.tools.train_refine import (
+        MODEL_KIND, build_refine_dataset, build_refine_model, size_anchors,
+    )
+
+    smi = nvidia_smi_line()
+    for kind in REFINE_CFGS:
+        cfg = refine_cfg(kind, data_path)
+        ds = build_refine_dataset(cfg, training=False)
+        n = int(cfg["OPTIMIZATION"]["BATCH_SIZE_PER_DEVICE"])
+        samples = [ds[i % len(ds)] for i in range(n)]
+        for s in samples:
+            s["anchors"] = size_anchors(cfg)
+        arrs = [torch.from_numpy(np.stack([s[k] for s in samples]))
+                for k in _SAMPLE_KEYS[kind]]
+        outs, ms = [], []
+        for dev in (device, torch.device("cpu")):
+            model = build_refine_model(cfg, dev, seed=0)
+            assert MODEL_KIND[cfg["MODEL"]["NAME"]] == kind
+            x = [a.to(dev) for a in arrs]
+            with torch.no_grad():
+                forward_decode(model, kind, *x)            # warm-up
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dec = forward_decode(model, kind, *x)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                raw = model(*x[:len(x) - (kind == "grm")])
+            dec = dec if isinstance(dec, tuple) else (dec,)
+            outs.append({**{k: v.cpu() for k, v in raw.items()},
+                         **{f"decoded{i}": v.cpu()
+                            for i, v in enumerate(dec)}})
+            del model
+        card, cpu = outs
+        worst = 0.0
+        for k, a in cpu.items():
+            b = card[k]
+            if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise AssertionError(f"refining {kind}: {k} not finite")
+            d = (a - b).abs()
+            if kind == "prm" and k == "decoded1":
+                top = cpu["heading_logits"][:, -1].topk(2, -1).values
+                d = d[(top[..., 0] - top[..., 1]) > 1e-4]
+            rel = float(d.max()) / max(float(a.abs().max()), 1e-30)
+            worst = max(worst, rel)
+            if rel > 1e-4:
+                raise AssertionError(f"refining {kind}: card and CPU differ "
+                                     f"on {k} by {rel:.3g} of its scale")
+        pad = int((~arrs[3]).sum()) if kind == "prm" else 0
+        print(f"[refining] {smi}: {cfg['MODEL']['NAME']} D_MODEL "
+              f"{cfg['MODEL'].get('D_MODEL')} on {n} Vehicle tracks "
+              f"({', '.join(f'{k} {tuple(a.shape)}' for k, a in zip(_SAMPLE_KEYS[kind], arrs))}"
+              f"{f'; {pad} padded queries' if pad else ''}): card against "
+              f"CPU within {worst:.3g} of scale, all finite; forward + "
+              f"decode {ms[0]:.1f} ms on the card, {ms[1]:.1f} ms on the "
+              f"CPU")
+
+
+def run_refining(device, tmp):
+    """Phase 14 in the directory `tmp`: the sequences, the tracker on their
+    GT offered as detections, the daemon's crop (native) with GT matches
+    and IoU labels, the per-class pickles and Vehicle's record cache; the
+    three Vehicle models card against CPU; train_refine to REFINE_STEPS
+    steps for each (then 2 more, resumed, under torch.profiler);
+    test_refine for each, and under TTA for GRM and PRM.  No kernel may
+    launch."""
+    import pickle
+
+    import torch
+    from detzero_tpu_torch.parallel.trainer import Trainer
+    from detzero_tpu_torch.pipeline import daemon
+    from detzero_tpu_torch.tools import (
+        build_record_cache, run_track, test_refine, train_refine,
+    )
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    reset_counts()
+    root, out = Path(tmp) / "lidar", Path(tmp) / "output"
+    data = Path(tmp) / "refining"
+    cwd = os.getcwd()
+    os.chdir(REPO)        # the yamls' _BASE_CONFIG_ paths are relative
+    try:
+        t0 = time.perf_counter()
+        seqs = write_refine_tree(root)
+        n_frames = REFINE_SEQS * REFINE_FRAMES
+        print(f"[refining] wrote {REFINE_SEQS} sequences x {REFINE_FRAMES} "
+              f"frames of {TREE_POINTS} points, {TREE_OBJECTS} objects "
+              f"each, in {time.perf_counter() - t0:.1f} s")
+
+        # the tracker on the GT offered as detections (score 1)
+        dets = [{"name": fr["names"], "score": np.ones(len(fr["names"])),
+                 "boxes_lidar": fr["boxes_lidar"], "frame_id": f,
+                 "sequence_name": seq, "pose": fr["pose"]}
+                for seq, frames in seqs.items()
+                for f, fr in enumerate(frames)]
+        det_path = out / "gt_detections.pkl"
+        det_path.parent.mkdir(parents=True)
+        det_path.write_bytes(pickle.dumps(dets))
+        t0 = time.perf_counter()
+        tracked = run_track.main(["--cfg_file", TRACK_CFG, "--data_path",
+                                  str(det_path), "--output_dir",
+                                  str(out / "track"), "--workers",
+                                  str(REFINE_SEQS)])["tracks"]
+        dt = time.perf_counter() - t0
+        n_tracks = sum(len(v["tracks"]) for v in tracked.values())
+        print(f"[refining] tracker: {n_frames} frames, {n_tracks} tracks in "
+              f"{dt:.1f} s, {n_frames / dt:.2f} frames/s")
+
+        # the daemon: crop (native), GT matches, IoU labels, pickles, cache
+        before = (daemon.NATIVE_FRAMES, daemon.NUMPY_FRAMES)
+        crop_s, by_cls = 0.0, {}
+        for seq, frames in seqs.items():
+            pts = [np.load(root / seq / f"{f:04d}.npy")
+                   for f in range(REFINE_FRAMES)]
+            gts = [fr["boxes_global"] for fr in frames]
+            t0 = time.perf_counter()
+            recs = daemon.prepare_object_data(
+                tracked[seq], pts, [fr["pose"] for fr in frames], nlz_col=5,
+                gt_boxes=gts, gt_ids=[np.arange(len(g)) for g in gts])
+            crop_s += time.perf_counter() - t0
+            ious = daemon.generate_iou_gt(recs, {})
+            for oid, rec in recs.items():
+                rec["iou_gt"] = ious[oid]
+                cls = REFINE_CLASSES[int(rec["label"])]
+                by_cls.setdefault(cls, {}).setdefault(seq, {})[oid] = rec
+        native = daemon.NATIVE_FRAMES - before[0]
+        fallback = daemon.NUMPY_FRAMES - before[1]
+        if (native, fallback) != (n_frames, 0):
+            raise AssertionError(f"the daemon cropped {native} frames "
+                                 f"natively and {fallback} in numpy, not "
+                                 f"{n_frames} natively")
+        for cls, per_seq in by_cls.items():
+            for seq, recs in per_seq.items():
+                path = data / cls / f"{seq}.pkl"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.write_bytes(pickle.dumps(recs))
+        counts = {cls: (sum(len(r) for r in per.values()),
+                        sum(bool(np.any(x["matched"])) for r in per.values()
+                            for x in r.values()))
+                  for cls, per in by_cls.items()}
+        print(f"[refining] daemon: {crop_s * 1e3 / n_frames:.1f} ms a frame "
+              f"over {n_frames} frames, native cropper {native} frames, "
+              f"numpy {fallback}; records (matched tracks) a class: "
+              + ", ".join(f"{c} {n} ({m})" for c, (n, m) in counts.items()))
+        t0 = time.perf_counter()
+        build_record_cache.main(["--object_root", str(data), "--classes",
+                                 "Vehicle"])
+        cache_bytes = sum(p.stat().st_size
+                          for p in (data / "Vehicle").glob("*.dzrc"))
+        print(f"[refining] Vehicle record cache: {cache_bytes} bytes in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        grm_batch = int(refine_cfg("grm", data)["OPTIMIZATION"][
+            "BATCH_SIZE_PER_DEVICE"])
+        if counts.get("Vehicle", (0, 0))[1] < grm_batch:
+            raise AssertionError(f"{counts.get('Vehicle')} Vehicle tracks: "
+                                 f"fewer matched than GRM's batch of "
+                                 f"{grm_batch}")
+
+        check_refine_card_cpu(device, data)
+        torch.cuda.empty_cache()
+
+        for kind, yaml in REFINE_CFGS.items():
+            args = ["--cfg_file", yaml, "--device", str(device),
+                    "--output_dir", str(out), "--workers", "2", "--seed",
+                    "0", "--log_every", "1"]
+            over = ["--set", "DATA_PATH", str(data)]
+            torch.cuda.reset_peak_memory_stats(device)
+            trainer = train_refine.main(args + ["--max_steps",
+                                                str(REFINE_STEPS)] + over)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+            exp = out / Path(yaml).stem / "default" / "ckpt"
+            lines = [json.loads(x) for x in
+                     (exp / "metrics.jsonl").read_text().splitlines()]
+            if [x["step"] for x in lines] != list(
+                    range(1, REFINE_STEPS + 1)) or trainer.step_count != \
+                    REFINE_STEPS:
+                raise AssertionError(f"train_refine {kind}: steps "
+                                     f"{[x['step'] for x in lines]}")
+            if not all(np.isfinite(v) for x in lines for v in x.values()):
+                raise AssertionError(f"train_refine {kind}: a metric that "
+                                     f"is not finite")
+            ckpt_bytes = trainer.ckpt.path(REFINE_STEPS).stat().st_size
+            step_ms = [x["ms_per_it"] for x in lines[2:]]
+            del trainer
+            torch.cuda.empty_cache()
+            with profiled_calls(Trainer, "fit", {}) as prof:
+                train_refine.main(args + ["--max_steps",
+                                          str(REFINE_STEPS + 2)] + over)
+            idle = 1.0 - prof["busy_ms"] / prof["wall_ms"]
+            print(f"[refining] {smi}: train_refine {kind} at batch "
+                  f"{refine_cfg(kind, data)['OPTIMIZATION']['BATCH_SIZE_PER_DEVICE']}"
+                  f": losses " + ", ".join(f"{x['loss']:.4f}" for x in lines)
+                  + f"; {sum(step_ms) / len(step_ms):.1f} ms/step over "
+                  f"steps 3-{REFINE_STEPS} ("
+                  + ", ".join(f"{t:.1f}" for t in step_ms)
+                  + f"); idle share {idle:.3f} in fit (steps "
+                  f"{REFINE_STEPS + 1}-{REFINE_STEPS + 2}, resumed); peak "
+                  f"memory {peak:.2f} GiB; checkpoint {ckpt_bytes} bytes")
+            torch.cuda.empty_cache()
+
+        for kind, yaml in REFINE_CFGS.items():
+            for tta in ((False, True) if kind in REFINE_TTA else (False,)):
+                res = test_refine.main(
+                    ["--cfg_file", yaml, "--device", str(device),
+                     "--output_dir", str(out), "--save_to_file",
+                     *(["--tta"] if tta else []), "--set", "DATA_PATH",
+                     str(data)])
+                t = res["timings"]
+                if res["step"] != REFINE_STEPS + 2 or not \
+                        res["result_path"].exists():
+                    raise AssertionError(f"test_refine {kind}: step "
+                                         f"{res['step']}, no pickle")
+                for per in res["results"].values():
+                    for r in per.values():
+                        if not all(np.isfinite(v).all() for v in r.values()):
+                            raise AssertionError(f"test_refine {kind}: an "
+                                                 f"output not finite")
+                route = f"TTA ({REFINE_TTA[kind]} variants)" if tta \
+                    else "batched"
+                print(f"[refining] {smi}: test_refine {kind} {route}: "
+                      f"{t['tracks']} tracks, {t['tracks'] / t['seconds']:.2f}"
+                      f" tracks/s; recall@0.7 input {res['recall_in']:.4f} "
+                      f"-> output {res['recall_out']:.4f} over "
+                      f"{res['boxes']} boxes (untrained: printed, not "
+                      f"checked); {res['result_path'].name}")
+    finally:
+        os.chdir(cwd)
+    got = read_counts()
+    if any(got.values()):
+        raise AssertionError(f"the refining stage launched kernels: {got}")
+    total = time.perf_counter() - t_phase
+    print(f"[refining] phase 14 in {total:.1f} s, no kernel launched")
+    if total > REFINE_PHASE_S:
+        raise AssertionError(f"phase 14 took {total:.1f} s, over "
+                             f"{REFINE_PHASE_S:.0f}")
+
+
 def main():
     import torch
 
@@ -2572,6 +2907,11 @@ def main():
             rec[name]["train_det"] = r
         torch.cuda.empty_cache()
         by_path.update(run_test_det(device, tmp, yaml_path))
+    torch.cuda.empty_cache()
+
+    # 14. the refining stage from tracks: the daemon, GRM, PRM and CRM
+    with tempfile.TemporaryDirectory(prefix="refining_") as tmp:
+        run_refining(device, tmp)
 
     # result lines
     kernels = []

@@ -50,14 +50,28 @@ def convert_centerpoint(variables, model=None):
     and, when `model` is given, on any key or shape that does not match its
     state_dict (a leftover leaf or an unfilled parameter).  Without
     `batch_stats` the result (and the check) covers the parameters only."""
+    return _convert(variables, model, with_conv=True)
+
+
+def convert_refiner(variables, model=None):
+    """`convert_centerpoint` for a GeometryTransformer, PositionTransformer
+    or ConfidencePointNet tree: Dense kernels (in, out) become (out, in),
+    attention's query/key/value/out kernels keep their 3-D layout, biases
+    and LayerNorm scales are kept; a conv kernel or a BN statistic is a
+    leaf no rule consumes.  Raises as `convert_centerpoint` does."""
+    return _convert(variables, model, with_conv=False)
+
+
+def _convert(variables, model, with_conv):
     state = {}
     for collection in ("params", "batch_stats"):
         for path, arr in _leaves(variables.get(collection, {})):
             name, parent = path[-1], (path[-2] if len(path) > 1 else "")
             key = ".".join(path)
-            if collection == "batch_stats" and name in ("mean", "var"):
+            if with_conv and collection == "batch_stats" \
+                    and name in ("mean", "var"):
                 val = arr
-            elif collection == "params" and name == "kernel" \
+            elif with_conv and collection == "params" and name == "kernel" \
                     and arr.ndim == 4:
                 if parent.startswith("ConvTranspose"):
                     val = arr[::-1, ::-1].transpose(2, 3, 0, 1)
@@ -107,7 +121,7 @@ def flax_path(key, ndim):
 
 
 def to_flax(state):
-    """The inverse of `convert_centerpoint`: {name: tensor or array} ->
+    """The inverse of `convert_centerpoint` and `convert_refiner`: {name: tensor or array} ->
     {"params": nested numpy tree[, "batch_stats": ...]} of float32 copies
     (never views of the tensors, which may change in place)."""
     out = {}

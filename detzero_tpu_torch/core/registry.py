@@ -43,7 +43,9 @@ class Registry:
         return self._registry.keys()
 
 
-# the port's datasets and the tracker's motion filters; the reference's
-# other registries come with the modules that fill them
+# the port's datasets, the tracker's motion filters and the refining
+# models; the reference's other registries come with the modules that fill
+# them
 DATASETS = Registry("datasets")
 MOTION_FILTERS = Registry("motion_filters")
+REFINE_MODULES = Registry("refine_modules")

@@ -24,6 +24,19 @@ def plan_grids(grid_zyx):
     return grids
 
 
+def lossless_row_budget(grid_zyx) -> int:
+    """The row budget at which no BEV row of any level drops a pillar: the
+    L0 row width nx.  A row of level l holds at most its own nx_l pillars,
+    and each level's nx is its parent's halved, rounded up, so L0's bounds
+    them all; the check below holds every level to it."""
+    grids = plan_grids(grid_zyx)
+    budget = int(grids[0][2])
+    if any(nx > budget for _, _, nx in grids):
+        raise ValueError(f"a level of {grids} is wider than L0's {budget} "
+                         f"columns")
+    return budget
+
+
 def build_pillar_plan(table, grid_zyx, capacities: Sequence[int],
                       with_centroids: bool = False):
     """table: `pillars.build_pillar_table` output at stride 1 (dense mode

@@ -56,7 +56,7 @@ from detzero_tpu_torch.models.detection.backbone3d_pallas import (
     PallasResBackbone8x, SparseConvBNReLU, augment_plan_rowpad, stack_plans,
 )
 from detzero_tpu_torch.models.detection.backbone3d_pillar import (
-    build_pillar_plan, plan_grids,
+    build_pillar_plan, lossless_row_budget, plan_grids,
 )
 from detzero_tpu_torch.models.detection.center_head import (
     HM_BIAS, CenterHead, assign_targets, center_head_loss,
@@ -133,7 +133,13 @@ class CenterPoint(nn.Module):
                                  max_voxels // 4, max_voxels // 8)))
         self.pillar_capacities = tuple(cfg.get("PILLAR_CAPACITIES",
                                                capacities))
-        self.row_budget = int(cfg.get("PILLAR_ROW_BUDGET", 128))
+        # the reference's 'pillar' and 'sorted' routes keep every pillar
+        # of a row; 'pillar_pallas' drops those past 128 a row, as there
+        budget = cfg.get("PILLAR_ROW_BUDGET")
+        if budget is None:
+            budget = 128 if cfg.get("BACKBONE3D", "pillar") == \
+                "pillar_pallas" else lossless_row_budget(self.grid_zyx)
+        self.row_budget = int(budget)
         self.bev_hw = (-(-ny // self.feature_map_stride),
                        -(-nx // self.feature_map_stride))
         self.second_stage = bool(cfg.get("SECOND_STAGE", False))

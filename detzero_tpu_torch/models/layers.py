@@ -5,9 +5,10 @@ Parameters and statistics keep the reference's names (`scale`, `bias`,
 argument, or the input's.  `MaskedBatchNorm` follows
 `torch.nn.Module.training`: running statistics in eval mode, masked batch
 statistics in train mode.  `MLP`, `LayerNorm` and
-`MultiHeadDotProductAttention` are the blocks of the PDV RoI head, with
-flax's numerics: LayerNorm's epsilon 1e-6 and its one-pass variance, the
-attention's query scaled by 1/sqrt(head dim).
+`MultiHeadDotProductAttention` are the blocks of the PDV RoI head and of
+the refining models, with flax's numerics: LayerNorm's epsilon 1e-6 and
+its one-pass variance, the attention's query scaled by 1/sqrt(head dim)
+and its masked logits set to the dtype's least finite value.
 """
 
 from __future__ import annotations
@@ -270,10 +271,16 @@ class DenseGeneral(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax `nn.MultiHeadDotProductAttention` (no mask, no dropout): query,
-    key and value projections to (heads, head_dim), the query scaled by
+    """flax `nn.MultiHeadDotProductAttention` (no dropout): query, key and
+    value projections to (heads, head_dim), the query scaled by
     1/sqrt(head_dim), softmax over the keys, and the output projection
-    back to the input width.  forward(q (..., L, C), k, v)."""
+    back to the input width.  forward(q (..., L, C), k, v, mask=None).
+
+    `mask`, bool and broadcastable to (..., heads, L_q, L_k), keeps flax's
+    semantics: a masked logit becomes finfo(dtype).min before the softmax,
+    so a row with every key masked gets uniform weights over all keys, not
+    NaN (`scaled_dot_product_attention` with a boolean mask gives NaN
+    there, and the refining losses multiply such rows by 0)."""
 
     def __init__(self, features, num_heads, qkv_features, device=None):
         super().__init__()
@@ -285,9 +292,11 @@ class MultiHeadDotProductAttention(nn.Module):
         self.value = DenseGeneral((features,), hd, device=device)
         self.out = DenseGeneral(hd, (features,), device=device)
 
-    def forward(self, inputs_q, inputs_k, inputs_v):
+    def forward(self, inputs_q, inputs_k, inputs_v, mask=None):
         q = self.query(inputs_q) / math.sqrt(self.head_dim)
         k, v = self.key(inputs_k), self.value(inputs_v)
         logits = torch.einsum("...qhd,...khd->...hqk", q, k)
+        if mask is not None:
+            logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
         w = torch.softmax(logits, -1)
         return self.out(torch.einsum("...hqk,...khd->...qhd", w, v))

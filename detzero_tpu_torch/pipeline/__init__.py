@@ -1,2 +1,2 @@
-"""Host-side pipeline stages (the Waymo-protocol evaluator); import the
-submodules directly."""
+"""Host-side pipeline stages (the Waymo-protocol evaluator, the daemon
+between tracking and refining); import the submodules directly."""

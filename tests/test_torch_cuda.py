@@ -653,6 +653,53 @@ def test_tiny_model_card_vs_cpu(tiny):
             assert err <= 5e-2 * max(float(r[k].abs().max()), 1.0), k
 
 
+def test_pillar_route_row_budget_card_vs_cpu(dev, monkeypatch):
+    """configs/det_model_cfgs/centerpoint_synthetic_cpu.yaml with no
+    PILLAR_ROW_BUDGET (route 'pillar': the L0 row width, 192) on a scene
+    whose row at y = 0.1 holds a pillar in every column: K1, K2 and K8 at
+    that budget, bf16 on the card against f32 on the CPU within
+    5e-2 * max(|ref|, 1) (test_tiny_model_card_vs_cpu's bound), and a
+    finite training loss and gradient norm through K4, K5 and K6."""
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.tools import common
+
+    # the yamls' _BASE_CONFIG_ paths are relative to the repository's root
+    monkeypatch.chdir(Path(__file__).resolve().parent.parent)
+    cfg = cfg_from_yaml_file("configs/det_model_cfgs/"
+                             "centerpoint_synthetic_cpu.yaml", Config())
+    cfg["MODEL"]["BEV_LAYER_NUMS"] = [1, 1]
+    cpu = common.build_detector(cfg, "cpu", dtype=torch.float32, seed=2)
+    gpu = common.build_detector(cfg, "cpu", dtype=torch.bfloat16,
+                                seed=2).to(dev)
+    assert cpu.row_budget == gpu.row_budget == 192
+    rng = np.random.RandomState(11)
+    pts = np.zeros((4096, 6), np.float32)
+    pts[:, :2] = rng.uniform(-19.1, 19.1, (4096, 2))
+    pts[:1024, 0] = np.linspace(-19.15, 19.15, 1024)
+    pts[:1024, 1] = 0.1
+    pts[:, 2] = rng.uniform(-1.5, 1.5, 4096)
+    pts[:, 3:5] = rng.rand(4096, 2)
+    p = torch.from_numpy(pts)
+    v = torch.ones(4096, dtype=torch.bool)
+    ref = cpu.forward_one(p, v)
+    got = gpu.forward_one(p.to(dev), v.to(dev))
+    for r, h in zip(ref, got):
+        for k in r:
+            err = (h[k].float().cpu() - r[k]).abs().max()
+            assert err <= 5e-2 * max(float(r[k].abs().max()), 1.0), k
+    gb = torch.zeros(2, 4, 7, device=dev)
+    gb[:, 0] = torch.tensor([1.0, 0.1, 0.0, 4.4, 2.0, 1.6, 0.3])
+    gv = torch.zeros(2, 4, dtype=torch.bool, device=dev)
+    gv[:, 0] = True
+    loss, _ = gpu.loss(p.to(dev).expand(2, -1, -1), v.to(dev).expand(2, -1),
+                       gb, torch.zeros(2, 4, dtype=torch.int32, device=dev),
+                       gv)
+    loss.backward()
+    norm = torch.sqrt(sum((q.grad.float() ** 2).sum()
+                          for q in gpu.parameters() if q.grad is not None))
+    assert torch.isfinite(loss) and torch.isfinite(norm) and norm > 0
+
+
 def _grad_agreement(ref, got, rel=5e-2):
     """(share of all elements beyond rel * max(|ref leaf|, 1), lowest share
     of one leaf's elements within it, global norm ratio got / ref)."""

@@ -1,8 +1,9 @@
 """detzero_tpu_torch imports neither jax, flax, yaml nor detzero_tpu
 (predict, one training step, the two-stage predict and loss, one step of
 the training entry point from its config and loader, the inference entry
-point on its checkpoint and the tracker on its output run with them
-blocked; no source file of the package, nor chip_smoke.py or
+point on its checkpoint, the tracker on its output, and the refining
+stage (the daemon's records of those tracks, one GRM training step,
+GRM's inference on its checkpoint) run with them blocked; no source file of the package, nor chip_smoke.py or
 chip_profile.py, names them in an import), and on CPU tensors every
 kernel wrapper takes its plain version (no launch counted); on a tensor that is neither CPU nor CUDA a wrapper raises instead
 of falling back; and without a card the model is built only when the
@@ -60,6 +61,22 @@ MAIN_PATH = [
     "detzero_tpu_torch.tools.test_det", "detzero_tpu_torch.tools.run_track",
     "detzero_tpu_torch.tools.eval_track",
     "detzero_tpu_torch.tools.ensemble_dets",
+    "detzero_tpu_torch.models.refining",
+    "detzero_tpu_torch.models.refining.target_assign",
+    "detzero_tpu_torch.models.refining.modules",
+    "detzero_tpu_torch.models.refining.grm",
+    "detzero_tpu_torch.models.refining.prm",
+    "detzero_tpu_torch.models.refining.crm",
+    "detzero_tpu_torch.models.refining.batched",
+    "detzero_tpu_torch.models.refining.tta",
+    "detzero_tpu_torch.data.refine_features",
+    "detzero_tpu_torch.data.refine_dataset",
+    "detzero_tpu_torch.data.record_cache",
+    "detzero_tpu_torch.pipeline.daemon",
+    "detzero_tpu_torch.tools.prepare_object_data",
+    "detzero_tpu_torch.tools.build_record_cache",
+    "detzero_tpu_torch.tools.train_refine",
+    "detzero_tpu_torch.tools.test_refine",
 ]
 
 SCRIPT = """
@@ -130,6 +147,34 @@ with tempfile.TemporaryDirectory() as tmp:
                               "--output_dir", tmp + "/track"])
     cli = [cli, det["step"], len(det["det_annos"]),
            list(tracked["tracks"])]
+    # the refining stage: the daemon's records of two tracks of 3 frames,
+    # one GRM training step on them, and GRM's inference on its checkpoint
+    import pickle
+    from pathlib import Path
+    from detzero_tpu_torch.pipeline import daemon
+    from detzero_tpu_torch.tools import test_refine, train_refine
+    box = np.array([2.0, 1.0, 0.0, 4.4, 2.0, 1.6, 0.3], np.float32)
+    tr = {{"tracks": {{k: {{"boxes_global": np.stack([box + [k + f, 0, 0, 0,
+                                                              0, 0, 0]
+                                                      for f in range(3)]),
+                         "score": np.ones(3, np.float32),
+                         "sample_idx": np.arange(3), "hit": np.ones(3),
+                         "label": 0}} for k in range(2)}}}}
+    frames = [np.random.RandomState(f).uniform(-4, 4, (4096, 4))
+              .astype(np.float32) for f in range(3)]
+    recs = daemon.prepare_object_data(tr, frames, [np.eye(4)] * 3,
+                                      gt_boxes=[box[None]] * 3)
+    Path(tmp, "ref", "Vehicle").mkdir(parents=True)
+    Path(tmp, "ref", "Vehicle", "seq.pkl").write_bytes(pickle.dumps(recs))
+    rcli = ["--cfg_file", "configs/ref_model_cfgs/synthetic_grm.yaml",
+            "--device", "cpu", "--workers", "0", "--output_dir", tmp,
+            "--batch_size", "1"]
+    rset = ["--set", "DATA_PATH", tmp + "/ref", "MODEL.D_MODEL", "16",
+            "QUERY_POINTS", "8", "MEMORY_POINTS", "32"]
+    refine = [train_refine.main(rcli + ["--max_steps", "1"] + rset)
+              .step_count,
+              test_refine.main(rcli + ["--save_to_file"] + rset)["step"],
+              daemon.NATIVE_FRAMES + daemon.NUMPY_FRAMES > 0]
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu",
                                     "yaml")
@@ -139,7 +184,7 @@ print(json.dumps({{"bad": bad, "kept": int(out["mask"].sum()),
     "two_stage": [list(out2["boxes"].shape), int(out2["mask"].sum()),
                   bool(torch.isfinite(out2["boxes"]).all()),
                   bool(torch.isfinite(loss2))],
-    "cli": cli, "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
+    "cli": cli, "refine": refine, "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
                  rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
                  iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
                  iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES,
@@ -160,6 +205,7 @@ def test_port_imports_no_jax_and_cpu_takes_plain_versions():
     assert res["finite"]
     assert res["two_stage"] == [[1, 8, 7], 8, True, True]
     assert res["cli"] == [1, 1, 1, ["synthetic_000"]]
+    assert res["refine"] == [1, 1, True]
     assert res["launches"] == [0] * 10
 
 
