@@ -115,7 +115,31 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      torch.profiler (idle share); `test_refine.main` for each with
      --save_to_file, and under TTA for GRM and PRM (tracks/s, recall at
      IoU 0.7 input -> output, printed); no kernel launched over the whole
-     phase, which must end within 120 s.
+     phase, which must end within 120 s;
+ 15. the offboard pipeline from raw records, on phase 12's checkpoint and
+     phase 14's Vehicle refiners (phases 12-15 share one temporary root):
+     2 sequences x 10 frames written as <seq>_with_camera_labels.tfrecord
+     through the port's protobuf codec (SyntheticWaymoDataset scenes of
+     160,000 points and 48 objects, posed as phase 12 poses them,
+     projected into a 64 x 2650 TOP range image of two returns, the beams
+     at the quantiles of the scene's inclinations; labels, pose, context,
+     timestamp); `create_waymo_infos.main` --stage infos then gt_database
+     (s, ms a frame), every record read again with its CRCs verified and
+     decoded (ms a frame, at least 100,000 points a frame, equal to the
+     .npy); `test_det.main` on that tree with phase 12's checkpoint (all
+     20 frames, the native reader; K1 1, K2 20, K8 1, K10 1 a sample,
+     exact; frames/s); `run_offboard.main` on its result.pkl with the
+     preprocessed tree as points root and the three Vehicle refiners on
+     the card (their forward's inputs on the card, the first run of each
+     kind profiled: its kernels on the card; no kernel of the port;
+     StageTimer's stage seconds; 20 finite final frames, 10 a sequence);
+     the infos' GT offered as detections through `run_offboard` (no
+     refiners) and `detzero_eval --metric detection` against that GT
+     posed into the global frame: Vehicle AP_L2 at least 0.9; a
+     submission .bin of test_det's detections keyed by the infos'
+     context names and timestamps, decoded back equal (bytes printed);
+     the phase must end within 150 s.  Its test_det launches are the path
+     `OB` of the kernels line.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -2815,6 +2839,429 @@ def run_refining(device, tmp):
                              f"{REFINE_PHASE_S:.0f}")
 
 
+# phase 15: the offboard pipeline from raw records (the README's "Full
+# offboard pipeline", first and last steps): tfrecords -> infos and GT
+# database -> test_det -> run_offboard -> detzero_eval -> submission .bin
+OB_SEQS = 2
+OB_FRAMES = 10
+OB_RI_SHAPE = (64, 2650)     # the TOP lidar's range image: beams x columns
+OB_LIDAR_Z = 2.0             # the TOP lidar's height in the vehicle frame, m
+OB_MIN_POINTS = 100_000      # decoded points a frame, at least
+OB_AP_L2 = 0.9               # Vehicle AP_L2 of the GT offered as detections
+OB_PHASE_S = 150.0
+OB_TYPES = {"Vehicle": 1, "Pedestrian": 2, "Sign": 3, "Cyclist": 4}
+
+
+def beam_inclinations(incl, h):
+    """h beam inclinations (ascending, rad) at the quantiles of the points'
+    inclinations: a calibration's explicit, non-uniform beams, dense where
+    the scene's points are (its far ground), as the TOP lidar's are near
+    the horizon."""
+    return np.quantile(incl, (np.arange(h) + 0.5) / h)
+
+
+def project_two_returns(xyz, feats, inc, w):
+    """Lidar-frame points (N, 3) (extrinsic: a translation of OB_LIDAR_Z up)
+    -> two (H, W, 4) range images [range, intensity, elongation, NLZ]: the
+    nearest point of a pixel in return 1, the next in return 2, NLZ -1 on
+    every point (not in a no-label zone), the other pixels zero.  The
+    inverse of `waymo_preprocess.range_image_to_points` up to the pixel's
+    quantisation (the beam's inclination, the column's azimuth)."""
+    h = len(inc)
+    p = np.asarray(xyz, np.float64) - [0.0, 0.0, OB_LIDAR_Z]
+    r = np.linalg.norm(p, axis=1)
+    beam = np.searchsorted((inc[1:] + inc[:-1]) / 2,
+                           np.arcsin(p[:, 2] / np.maximum(r, 1e-9)))
+    col = np.round((np.pi - np.arctan2(p[:, 1], p[:, 0])) * w / (2 * np.pi)
+                   - 0.5).astype(np.int64) % w
+    pix = (h - 1 - beam) * w + col          # row 0 = the top beam
+    order = np.lexsort((r, pix))
+    ps = pix[order]
+    first = np.r_[True, ps[1:] != ps[:-1]]
+    at = np.arange(len(ps))
+    rank = at - np.maximum.accumulate(np.where(first, at, 0))
+    images = []
+    for k in (0, 1):
+        sel = order[rank == k]
+        ri = np.zeros((h * w, 4), np.float32)
+        ri[pix[sel], 0] = r[sel]
+        ri[pix[sel], 1:3] = feats[sel]
+        ri[pix[sel], 3] = -1.0
+        images.append(ri.reshape(h, w, 4))
+    return images
+
+
+def write_offboard_records(raw_dir):
+    """OB_SEQS sequences of OB_FRAMES frames as
+    <seq>_with_camera_labels.tfrecord under `raw_dir`, through the port's
+    codec and `write_tfrecord`: SyntheticWaymoDataset scenes of
+    TREE_OBJECTS objects (seeds 20, 21, ...), posed as phase 12 poses them
+    (`ego_pose`), projected into the TOP lidar's two returns; each frame
+    with its pose, context name, timestamp and labels (box, type, id,
+    difficulty, the scene's points in the box, counted by the native
+    cropper).  Returns the sequences' names."""
+    from detzero_tpu_torch import native
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.data import waymo_preprocess as wp
+    from detzero_tpu_torch.data.tfrecord_io import write_tfrecord
+    from detzero_tpu_torch.data.waymo_dataset import SyntheticWaymoDataset
+    from detzero_tpu_torch.protos import waymo_dataset_pb2 as wpb
+
+    h, w = OB_RI_SHAPE
+    extr = np.eye(4)
+    extr[2, 3] = OB_LIDAR_Z
+    seqs = []
+    for s in range(OB_SEQS):
+        cfg = cfg_from_yaml_file(TREE_BASE, Config())
+        cfg.update(SYNTHETIC_POINTS=TREE_POINTS,
+                   SYNTHETIC_OBJECTS=TREE_OBJECTS, SYNTHETIC_SEED=20 + s)
+        gen = SyntheticWaymoDataset(cfg, cfg["CLASS_NAMES"], training=False)
+        gen.FRAMES_PER_SEQ = OB_FRAMES
+        seq = f"segment-offboard_{s:03d}"
+        records = []
+        for f in range(OB_FRAMES):
+            pts, boxes_w, names = gen.generate_scene(f)
+            pose = ego_pose(f)
+            inv = np.linalg.inv(pose)
+            xyz = pts[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+            boxes = np.array(boxes_w[:, :7], np.float64)
+            boxes[:, :3] = boxes_w[:, :3] @ inv[:3, :3].T + inv[:3, 3]
+            boxes[:, 6] -= EGO_YAW * f
+            p = xyz - [0.0, 0.0, OB_LIDAR_Z]
+            inc = beam_inclinations(
+                np.arcsin(p[:, 2] / np.linalg.norm(p, axis=1)), h)
+            ri1, ri2 = project_two_returns(xyz, pts[:, 3:5], inc, w)
+            fr = wpb.Frame()
+            fr.context.name = f"offboard_context_{s:03d}"
+            fr.timestamp_micros = 1_600_000_000_000_000 + s * 10 ** 8 \
+                + f * 100_000
+            fr.pose.transform.extend(pose.ravel().tolist())
+            cal = fr.context.laser_calibrations.add()
+            cal.name = wpb.LaserName.TOP
+            cal.beam_inclinations.extend(inc.tolist())
+            cal.beam_inclination_min = float(inc[0])
+            cal.beam_inclination_max = float(inc[-1])
+            cal.extrinsic.transform.extend(extr.ravel().tolist())
+            laser = fr.lasers.add()
+            laser.name = wpb.LaserName.TOP
+            laser.ri_return1.range_image_compressed = wp.encode_matrix(ri1)
+            laser.ri_return2.range_image_compressed = wp.encode_matrix(ri2)
+            n_ins = [len(c) for c in native.crop_points_multi(
+                xyz.astype(np.float32), boxes, enlarge=1.0)]
+            for i, (b, name, n_in) in enumerate(zip(boxes, names, n_ins)):
+                lbl = fr.laser_labels.add()
+                lbl.box.center_x, lbl.box.center_y, lbl.box.center_z = b[:3]
+                lbl.box.length, lbl.box.width, lbl.box.height = b[3:6]
+                lbl.box.heading = b[6]
+                lbl.type = OB_TYPES[name]
+                lbl.id = f"{seq}_{i:03d}"
+                lbl.detection_difficulty_level = (
+                    wpb.Label.LEVEL_2 if n_in <= 5 else wpb.Label.LEVEL_1)
+                lbl.num_lidar_points_in_box = n_in
+            records.append(fr.SerializeToString())
+        write_tfrecord(Path(raw_dir) / f"{seq}_with_camera_labels.tfrecord",
+                       records)
+        seqs.append(seq)
+    return seqs
+
+
+@contextlib.contextmanager
+def refiner_forwards(out):
+    """While open, out["forwards"] counts the refiners' batched forwards
+    and out["cpu_inputs"] the input tensors among them off the card; the
+    first `BatchedRefiner.run` of each kind (GRM, PRM, CRM) runs under
+    torch.profiler, out["device_kernels"] and out["busy_ms"] summing the
+    card's kernels those launched and their union, out["profiled"] naming
+    the kinds (the rest run unprofiled, so that the stage times stand)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_profile import busy_ms
+    from detzero_tpu_torch.models.refining import batched
+
+    run, fwd = batched.BatchedRefiner.run, batched.forward_decode
+    out.update(forwards=0, cpu_inputs=0, device_kernels=0, busy_ms=0.0,
+               profiled=[])
+
+    def forward(model, kind, *arrs):
+        out["forwards"] += 1
+        out["cpu_inputs"] += sum(not a.is_cuda for a in arrs)
+        return fwd(model, kind, *arrs)
+
+    def call(self, samples):
+        if self.kind in out["profiled"]:
+            return run(self, samples)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run(self, samples)
+            torch.cuda.synchronize()
+        out["profiled"].append(self.kind)
+        out["device_kernels"] += sum(e.device_type.name == "CUDA"
+                                     for e in prof.events())
+        out["busy_ms"] += busy_ms(prof)
+        return res
+
+    batched.BatchedRefiner.run, batched.forward_decode = call, forward
+    try:
+        yield out
+    finally:
+        batched.BatchedRefiner.run, batched.forward_decode = run, fwd
+
+
+def check_final_frames(final, tag):
+    """OB_SEQS sequences of OB_FRAMES final frames, every box and score
+    finite; returns the box count."""
+    n = 0
+    if sorted(final) != [f"segment-offboard_{s:03d}"
+                         for s in range(OB_SEQS)] or \
+            any(len(v) != OB_FRAMES for v in final.values()):
+        raise AssertionError(f"{tag}: final frames {[(k, len(v)) for k, v in final.items()]}")
+    for frames in final.values():
+        for fr in frames:
+            if not (np.isfinite(fr["boxes"]).all()
+                    and np.isfinite(fr["scores"]).all()):
+                raise AssertionError(f"{tag}: a final box not finite")
+            n += len(fr["boxes"])
+    return n
+
+
+def run_offboard_phase(device, tmp, det_ckpt, refine_ckpts):
+    """Phase 15 in the directory `tmp`: records, preprocessing, test_det
+    on the preprocessed tree with phase 12's checkpoint `det_ckpt`,
+    run_offboard with phase 14's refiners ({kind: ckpt dir}), the chain on
+    the GT offered as detections, and the submission.  Returns {kernel
+    name: launches} of test_det."""
+    import pickle
+
+    import torch
+    from detzero_tpu_torch.data import waymo_dataset
+    from detzero_tpu_torch.data import waymo_preprocess as wp
+    from detzero_tpu_torch.data.tfrecord_io import read_tfrecord
+    from detzero_tpu_torch.pipeline import submit
+    from detzero_tpu_torch.protos import waymo_metrics_pb2
+    from detzero_tpu_torch.tools import (
+        create_waymo_infos, detzero_eval, run_offboard, test_det,
+    )
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    raw, root, out = tmp / "raw", tmp / "waymo", tmp / "output"
+    proc = root / "waymo_processed_data"
+    for d in (raw, root / "ImageSets", out):
+        d.mkdir(parents=True)
+    cwd = os.getcwd()
+    os.chdir(REPO)        # the yamls' _BASE_CONFIG_ paths are relative
+    try:
+        # 1. the records
+        t0 = time.perf_counter()
+        seqs = write_offboard_records(raw)
+        n_frames = OB_SEQS * OB_FRAMES
+        rec_bytes = sum(p.stat().st_size for p in raw.iterdir())
+        print(f"[offboard] wrote {OB_SEQS} tfrecords x {OB_FRAMES} frames "
+              f"({TREE_POINTS} scene points, {TREE_OBJECTS} objects, a "
+              f"{OB_RI_SHAPE[0]} x {OB_RI_SHAPE[1]} TOP range image of two "
+              f"returns each; {rec_bytes} bytes) in "
+              f"{time.perf_counter() - t0:.1f} s")
+
+        # 2. preprocessing: infos, then the GT database, through the CLI;
+        # every record read again with its CRCs verified and decoded
+        (root / "ImageSets" / "val.txt").write_text("\n".join(seqs))
+        t0 = time.perf_counter()
+        infos = create_waymo_infos.main([
+            "--stage", "infos", "--raw_dir", str(raw), "--out_dir",
+            str(proc), "--split_file", str(root / "ImageSets" / "val.txt"),
+            "--workers", "2"])
+        infos_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db = create_waymo_infos.main([
+            "--stage", "gt_database", "--infos_path",
+            str(root / "waymo_infos_val.pkl"), "--out_dir", str(proc),
+            "--db_out", str(root / "waymo_dbinfos_val.pkl")])
+        db_s = time.perf_counter() - t0
+        if len(infos) != n_frames:
+            raise AssertionError(f"{len(infos)} infos, not {n_frames}")
+        counts, decode_s = [], 0.0
+        for seq in seqs:
+            recs = list(read_tfrecord(raw / f"{seq}_with_camera_labels"
+                                      ".tfrecord", verify_crc=True))
+            if len(recs) != OB_FRAMES:
+                raise AssertionError(f"{seq}: {len(recs)} records")
+            for f, rec in enumerate(recs):
+                t0 = time.perf_counter()
+                pts = wp.frame_points(wp.parse_frame(rec))
+                decode_s += time.perf_counter() - t0
+                saved = np.load(proc / seq / f"{f:04d}.npy")
+                if not np.array_equal(saved, pts):
+                    raise AssertionError(f"{seq} frame {f}: the .npy is not "
+                                         f"the record's decode")
+                counts.append(len(pts))
+        if min(counts) < OB_MIN_POINTS:
+            raise AssertionError(f"decoded points a frame {min(counts)}, "
+                                 f"under {OB_MIN_POINTS}")
+        gt_n = sum(len(i["annos"]["name"]) for i in infos)
+        print(f"[offboard] {smi}: preprocessing: infos {infos_s:.2f} s "
+              f"({infos_s * 1e3 / n_frames:.1f} ms a frame, 2 threads), "
+              f"GT database {db_s:.2f} s ("
+              + ", ".join(f"{k} {len(v)}" for k, v in db.items())
+              + f"); decode alone {decode_s * 1e3 / n_frames:.1f} ms a "
+              f"frame; CRCs verified on {n_frames} records; points a frame "
+              f"{min(counts)}-{max(counts)} (mean {np.mean(counts):.0f}); "
+              f"{gt_n} labels")
+
+        # 3. test_det on the preprocessed tree, phase 12's checkpoint
+        yaml_path = root / "centerpoint_5sweeps_offboard.yaml"
+        yaml_path.write_text(f"_BASE_CONFIG_: {TREE_BASE}\n"
+                             f"DATA_PATH: {json.dumps(str(root))}\n")
+        per_sample = {"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
+                      "rowpad_nbr": NBR_LAUNCHES, "nms_walk": 1}
+        reset_counts()
+        before = waymo_dataset.NATIVE_SAMPLES
+        det = test_det.main([
+            "--cfg_file", str(yaml_path), "--device", str(device),
+            "--workers", "2", "--output_dir", str(out), "--ckpt",
+            str(det_ckpt), "--save_to_file", "--set", *DET_SET])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        t = det["timings"]
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update({k: v * n_frames for k, v in per_sample.items()})
+        native = waymo_dataset.NATIVE_SAMPLES - before
+        if launches != want or (t["samples"], t["frames"], native) != \
+                (n_frames,) * 3:
+            raise AssertionError(f"test_det: launches {launches} over "
+                                 f"{t['samples']} samples ({native} read "
+                                 f"natively), expected {want}")
+        n_det = sum(len(d["name"]) for d in det["det_annos"])
+        wall = t["load_s"] + t["predict_s"] + t["wbf_s"]
+        print(f"[offboard] {smi}: test_det on the decoded tree: "
+              f"{n_frames} frames from checkpoint step {det['step']}, "
+              f"{n_det} boxes; {n_frames / wall:.3f} frames/s from data "
+              f"(loader wait {t['load_s'] * 1e3 / n_frames:.1f}, predict "
+              f"{t['predict_s'] * 1e3 / n_frames:.1f} ms a frame); launches "
+              f"a sample " + ", ".join(f"{k} {v // n_frames}"
+                                       for k, v in launches.items() if v))
+
+        # 4. run_offboard on test_det's result and the preprocessed tree,
+        # with phase 14's Vehicle refiners on the card
+        stages = []
+        for kind, ckpt in refine_ckpts.items():
+            stages += [f"--{kind}_cfg", REFINE_CFGS[kind], f"--{kind}_ckpt",
+                       str(ckpt)]
+        reset_counts()
+        with refiner_forwards({}) as fwd:
+            t0 = time.perf_counter()
+            off = run_offboard.main([
+                "--det_path", str(det["result_path"]), "--points_root",
+                str(proc), "--output_dir", str(out / "offboard"),
+                "--device", str(device), *stages, "--track_cfg", TRACK_CFG,
+                "--set", *TRACK_SET])
+            off_s = time.perf_counter() - t0
+        if any(read_counts().values()):
+            raise AssertionError(f"run_offboard launched kernels of the "
+                                 f"port: {read_counts()}")
+        n_final = check_final_frames(off["final_frames"], "run_offboard")
+        n_tracks = sum(len(pickle.loads(p.read_bytes())["tracks"])
+                       for p in off["tracking_paths"].values())
+        if fwd["forwards"] == 0 or fwd["cpu_inputs"] or \
+                fwd["device_kernels"] == 0 or \
+                sorted(fwd["profiled"]) != sorted(refine_ckpts):
+            raise AssertionError(f"the refiners' forward did not run on the "
+                                 f"card: {fwd}")
+        print(f"[offboard] {smi}: run_offboard with GRM, PRM and CRM (the "
+              f"Vehicle yamls, phase 14's checkpoints) on test_det's "
+              f"result: {n_tracks} tracks, {n_final} final boxes over "
+              f"{n_frames} frames, all finite, in {off_s:.2f} s; refiners: "
+              f"{fwd['forwards']} batched forwards, all inputs on the card; "
+              f"the first run of each kind under torch.profiler: "
+              f"{fwd['device_kernels']} kernels on the card, busy "
+              f"{fwd['busy_ms']:.1f} ms; stage seconds (StageTimer) "
+              + ", ".join(f"{k} {v['total_s']:.3f}"
+                          for k, v in off["timings"].items()))
+
+        # 5. the chain on known boxes: the infos' GT as detections (score
+        # 1), no refiners, the tracker's own config; GT posed into the
+        # global frame, as the final frames are
+        dets, gt_global, gt_lidar = [], {}, {}
+        for info in infos:
+            seq = info["point_cloud"]["lidar_sequence"]
+            a = info["annos"]
+            dets.append({"name": a["name"], "score": np.ones(len(a["name"])),
+                         "boxes_lidar": a["gt_boxes_lidar"],
+                         "frame_id": info["point_cloud"]["sample_idx"],
+                         "sequence_name": seq, "pose": info["pose"]})
+            for tgt, boxes in ((gt_global, global_boxes(a["gt_boxes_lidar"],
+                                                        info["pose"])),
+                               (gt_lidar, a["gt_boxes_lidar"])):
+                tgt.setdefault(seq, []).append({
+                    "gt_boxes": boxes, "name": a["name"],
+                    "num_points": a["num_points_in_gt"]})
+        for name, obj in (("gt_dets.pkl", dets), ("gt_global.pkl", gt_global),
+                          ("gt_lidar.pkl", gt_lidar)):
+            (out / name).write_bytes(pickle.dumps(obj))
+        gt_off = run_offboard.main([
+            "--det_path", str(out / "gt_dets.pkl"), "--points_root",
+            str(proc), "--output_dir", str(out / "offboard_gt"),
+            "--track_cfg", TRACK_CFG])
+        n_gt_final = check_final_frames(gt_off["final_frames"], "GT chain")
+        aps = {}
+        for frame_name in ("global", "lidar"):
+            res = detzero_eval.main([
+                "--pred_path", str(gt_off["final_path"]), "--gt_path",
+                str(out / f"gt_{frame_name}.pkl"), "--metric", "detection"])
+            aps[frame_name] = res["Vehicle"]["AP_L2"]
+        print(f"[offboard] GT as detections through the tracker, daemon, "
+              f"combine and detzero_eval: {gt_n} GT boxes -> {n_gt_final} "
+              f"final boxes; Vehicle AP_L2 {aps['global']:.4f} against the "
+              f"GT posed into the global frame ({aps['lidar']:.4f} against "
+              f"the infos' vehicle-frame GT as given)")
+        if not aps["global"] >= OB_AP_L2:
+            raise AssertionError(f"GT chain: Vehicle AP_L2 {aps['global']} "
+                                 f"under {OB_AP_L2}")
+
+        # 6. the submission of test_det's detections, read back
+        by_key = {(i["point_cloud"]["lidar_sequence"],
+                   i["point_cloud"]["sample_idx"]): i for i in infos}
+        meta = [{"context_name": by_key[k]["context_name"],
+                 "frame_timestamp_micros": by_key[k]["timestamp"]}
+                for k in ((d["sequence_name"], d["frame_id"])
+                          for d in det["det_annos"])]
+        t0 = time.perf_counter()
+        recs = submit.build_submission_records(det["det_annos"], meta)
+        path = submit.write_submission(recs, out / "submission.bin")
+        sub_ms = (time.perf_counter() - t0) * 1e3
+        objs = waymo_metrics_pb2.Objects()
+        objs.ParseFromString(path.read_bytes())
+        if len(objs.objects) != n_det or len(recs) != n_det:
+            raise AssertionError(f"submission: {len(objs.objects)} objects "
+                                 f"for {n_det} detections")
+        want_boxes = np.concatenate([np.asarray(d["boxes_lidar"])[:, :7]
+                                     for d in det["det_annos"]])
+        for o, r, b in zip(objs.objects, recs, want_boxes):
+            got = [getattr(o.object.box, k) for k in
+                   ("center_x", "center_y", "center_z", "length", "width",
+                    "height", "heading")]
+            if got != b.astype(np.float64).tolist() \
+                    or o.score != float(np.float32(r["score"])) \
+                    or o.object.type != r["type"] \
+                    or (o.context_name, o.frame_timestamp_micros) != \
+                    (r["context_name"], r["frame_timestamp_micros"]):
+                raise AssertionError(f"submission: an object decoded "
+                                     f"unequal: {o} against {r}")
+        print(f"[offboard] submission: {n_det} objects, "
+              f"{path.stat().st_size} bytes in {sub_ms:.1f} ms, decoded "
+              f"back equal (boxes as doubles, scores as float32, types, "
+              f"contexts and timestamps)")
+    finally:
+        os.chdir(cwd)
+    total = time.perf_counter() - t_phase
+    print(f"[offboard] phase 15 in {total:.1f} s")
+    if total > OB_PHASE_S:
+        raise AssertionError(f"phase 15 took {total:.1f} s, over "
+                             f"{OB_PHASE_S:.0f}")
+    return launches
+
+
 def main():
     import torch
 
@@ -2898,20 +3345,35 @@ def main():
         run_sliding_train(device, warm)
     torch.cuda.empty_cache()
 
-    # 12. and 13. the training entry point on a Waymo-layout tree, then
-    # the inference entry point and the tracker on its checkpoint
-    with tempfile.TemporaryDirectory(prefix="waymo_tree_") as tmp:
+    # 12. to 15. in one temporary root, since phase 15 reads phase 12's
+    # detector checkpoint and phase 14's refiners
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # 12. and 13. the training entry point on a Waymo-layout tree, then
+        # the inference entry point and the tracker on its checkpoint
+        det_tmp = Path(tmp) / "waymo_tree"
+        det_tmp.mkdir()
         det_rec, by_path["train_det"], yaml_path = run_train_det(
-            device, step_ms, tmp)
+            device, step_ms, det_tmp)
         for name, r in det_rec.items():
             rec[name]["train_det"] = r
         torch.cuda.empty_cache()
-        by_path.update(run_test_det(device, tmp, yaml_path))
-    torch.cuda.empty_cache()
+        by_path.update(run_test_det(device, det_tmp, yaml_path))
+        torch.cuda.empty_cache()
 
-    # 14. the refining stage from tracks: the daemon, GRM, PRM and CRM
-    with tempfile.TemporaryDirectory(prefix="refining_") as tmp:
-        run_refining(device, tmp)
+        # 14. the refining stage from tracks: the daemon, GRM, PRM and CRM
+        ref_tmp = Path(tmp) / "refining"
+        ref_tmp.mkdir()
+        run_refining(device, ref_tmp)
+        torch.cuda.empty_cache()
+
+        # 15. the offboard pipeline from raw records, on phase 12's
+        # checkpoint and phase 14's Vehicle refiners
+        by_path["OB"] = run_offboard_phase(
+            device, Path(tmp) / "offboard",
+            det_tmp / "output" / yaml_path.stem / "default" / "ckpt",
+            {kind: ref_tmp / "output" / Path(yaml).stem / "default" / "ckpt"
+             for kind, yaml in REFINE_CFGS.items()})
+    torch.cuda.empty_cache()
 
     # result lines
     kernels = []

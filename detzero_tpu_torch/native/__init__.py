@@ -2,13 +2,14 @@
 point cropping (port of detzero_tpu/native/__init__.py).
 
 The hot host loop of the sweep loader (npy decode -> NLZ filter -> tanh
-intensity -> pose transform -> time channel -> fixed-budget padding) and
-the offboard cropper's points-in-boxes scan are `loader.cpp`, a small C++
-library driven through ctypes.  It is built with g++ at first use (about
-1 s) into `build/detzero_tpu_torch_native/<content hash>/` at the root of
-the checkout, never next to the source: the build writes a temporary name
-and renames it into place, so processes that build at once never load half
-a library.  `available()` says whether it builds and loads, as the
+intensity -> pose transform -> time channel -> fixed-budget padding), the
+offboard cropper's points-in-boxes scan and TFRecord's masked CRC-32C are
+`loader.cpp`, a small C++ library driven through ctypes.  It is built
+with g++ at first use (about 1 s) into
+`build/detzero_tpu_torch_native/<content hash>/` at the root of the
+checkout, never next to the source: the build writes a temporary name and
+renames it into place, so processes that build at once never load half a
+library.  `available()` says whether it builds and loads, as the
 reference's does; callers that must take the native path call the loaders
 directly, which raise when it does not.
 """
@@ -62,6 +63,8 @@ def _load() -> ctypes.CDLL:
     lib.load_merged_sample.restype = ctypes.c_int64
     lib.load_batch.restype = ctypes.c_int32
     lib.crop_points_multi.restype = ctypes.c_int64
+    lib.masked_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_int64]
+    lib.masked_crc32c.restype = ctypes.c_uint32
     return lib
 
 
@@ -132,6 +135,13 @@ def load_batch(batch_paths, batch_rels, batch_dts, out_stride: int,
         raise IOError("native batch loader failed")
     mask = np.arange(budget)[None, :] < n_valid[:, None]
     return out, mask
+
+
+def masked_crc32c(data) -> int:
+    """TFRecord's masked CRC-32C of `data` (bytes-like).  Raises where the
+    library cannot be built: there is no Python fallback."""
+    data = bytes(data)
+    return int(_load().masked_crc32c(data, len(data)))
 
 
 def crop_points_multi(points, boxes, enlarge: float = 1.1,

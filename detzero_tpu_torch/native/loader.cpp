@@ -1,5 +1,6 @@
 // Native data-loading runtime (port of detzero_tpu/native/loader.cpp,
-// unchanged but for these comments).
+// unchanged but for these comments and the TFRecord checksum at the end,
+// `masked_crc32c`, which data/tfrecord_io.py frames records with).
 //
 // Replaces the reference's torch-DataLoader C++ worker pool for the hot host
 // path: reading per-frame .npy point files, filtering no-label-zone points,
@@ -209,6 +210,42 @@ int64_t crop_points_multi(const float* pts, int64_t n, int64_t stride,
   int64_t total = 0;
   for (int64_t j = 0; j < m; ++j) total += counts[j];
   return total;
+}
+
+// TFRecord's checksum: CRC-32C (Castagnoli, reflected polynomial
+// 0x82F63B78) of n bytes, masked as ((crc >> 15 | crc << 17) +
+// 0xa282ead8) mod 2^32.  Table-driven, eight bytes a step (slicing-by-8).
+uint32_t masked_crc32c(const uint8_t* data, int64_t n) {
+  static uint32_t table[8][256];
+  static const bool ready = [] {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k)
+        c = (c >> 1) ^ (0x82F63B78u & (0u - (c & 1u)));
+      table[0][i] = c;
+    }
+    for (uint32_t i = 0; i < 256; ++i)
+      for (int t = 1; t < 8; ++t)
+        table[t][i] =
+            (table[t - 1][i] >> 8) ^ table[0][table[t - 1][i] & 0xFF];
+    return true;
+  }();
+  (void)ready;
+  uint32_t crc = 0xFFFFFFFFu;
+  int64_t i = 0;
+  for (; i + 8 <= n; i += 8) {
+    uint32_t lo, hi;
+    std::memcpy(&lo, data + i, 4);        // little-endian host
+    std::memcpy(&hi, data + i + 4, 4);
+    lo ^= crc;
+    crc = table[7][lo & 0xFF] ^ table[6][(lo >> 8) & 0xFF] ^
+          table[5][(lo >> 16) & 0xFF] ^ table[4][lo >> 24] ^
+          table[3][hi & 0xFF] ^ table[2][(hi >> 8) & 0xFF] ^
+          table[1][(hi >> 16) & 0xFF] ^ table[0][hi >> 24];
+  }
+  for (; i < n; ++i) crc = table[0][(crc ^ data[i]) & 0xFF] ^ (crc >> 8);
+  crc ^= 0xFFFFFFFFu;
+  return ((crc >> 15) | (crc << 17)) + 0xA282EAD8u;
 }
 
 }  // extern "C"

@@ -1,14 +1,17 @@
 """Shared CLI plumbing (port of tools/common.py; reference train.py:23
 parse_config pattern): --cfg_file + --set dotted overrides + experiment dir
-derivation, and the functions that make the detection dataset and model."""
+derivation, the functions that make the detection dataset and model, and
+the per-sequence points loader of the offboard CLIs."""
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import pickle
 import shutil
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from detzero_tpu_torch.core.config import (
@@ -106,3 +109,37 @@ def build_detector(cfg, device, dtype=torch.bfloat16, seed: int = 0):
         num_point_features=len(used), dtype=dtype, device="cpu")
     model.init_parameters(torch.Generator().manual_seed(seed))
     return model.to(device)
+
+
+def load_sequence_points(points_root, seq):
+    """(frame points, poses) of sequence `seq` under `points_root`, or None
+    where it has neither `<seq>.pkl` nor `<seq>/`.  Two layouts:
+
+      * `<seq>.pkl` holding {'points': [...], 'poses': [...]};
+      * the preprocessed tree (`data/waymo_preprocess.py`): `<seq>.pkl` is
+        the sequence's info list, each info's 'pose' the frame's pose, its
+        points `<seq>/NNNN.npy` by `point_cloud.sample_idx`, in the list's
+        order.
+
+    A `<seq>/` directory without `<seq>.pkl` has points but no poses, and
+    raises: taking its vehicle-frame points for global ones would crop
+    every moving frame's boxes from the wrong place.  (The reference's
+    run_offboard and prepare_object_data read the info list as a blob,
+    which raises TypeError, and read a bare directory with identity
+    poses.)"""
+    root = Path(points_root)
+    pkl, seq_dir = root / f"{seq}.pkl", root / seq
+    if pkl.exists():
+        with open(pkl, "rb") as f:
+            blob = pickle.load(f)
+        if isinstance(blob, dict):
+            return blob["points"], blob["poses"]
+        points = [np.load(seq_dir / f"{info['point_cloud']['sample_idx']:04d}"
+                                    ".npy") for info in blob]
+        return points, [info["pose"] for info in blob]
+    if seq_dir.exists():
+        raise FileNotFoundError(
+            f"{seq_dir} holds points but {pkl} is missing: neither a "
+            f"{{points, poses}} blob nor the preprocessed info list gives "
+            f"the frames' poses")
+    return None

@@ -4,7 +4,8 @@ points -> per-class, per-sequence refining records.
 
     python -m detzero_tpu_torch.tools.prepare_object_data \
         --track_path output/tracking/tracking-val-<stamp>.pkl \
-        --points_root <dir with <seq>/NNNN.npy or <seq>.pkl>
+        --points_root <dir with <seq>.pkl {points, poses}, or the
+                       preprocessed tree: <seq>.pkl infos, <seq>/NNNN.npy>
 
 Host code: the crop is the native C++ cropper, or the reference's NumPy
 route where g++ builds nothing; the log says which route cropped how many
@@ -18,18 +19,18 @@ import argparse
 import pickle
 from pathlib import Path
 
-import numpy as np
-
 
 def main(argv=None):
     from detzero_tpu_torch.core.logger import create_logger
     from detzero_tpu_torch.pipeline import daemon
+    from detzero_tpu_torch.tools.common import load_sequence_points
 
     p = argparse.ArgumentParser("prepare per-object refining data")
     p.add_argument("--track_path", required=True, help="tracking-<split>.pkl")
     p.add_argument("--points_root", required=True,
-                   help="dir with <seq>/NNNN.npy point files (or <seq>.pkl "
-                        "with {'points': [...], 'poses': [...]})")
+                   help="dir with <seq>.pkl holding {'points': [...], "
+                        "'poses': [...]}, or a preprocessed tree "
+                        "(<seq>.pkl infos + <seq>/NNNN.npy)")
     p.add_argument("--output_dir", default="data/waymo/refining")
     p.add_argument("--class_names", nargs="+",
                    default=["Vehicle", "Pedestrian", "Cyclist"])
@@ -43,19 +44,11 @@ def main(argv=None):
     written = {}
     before = (daemon.NATIVE_FRAMES, daemon.NUMPY_FRAMES)
     for seq, tr in tracking.items():
-        seq_dir = Path(args.points_root) / seq
-        pkl = Path(args.points_root) / f"{seq}.pkl"
-        if pkl.exists():
-            with open(pkl, "rb") as f:
-                blob = pickle.load(f)
-            frame_points, poses = blob["points"], blob["poses"]
-        elif seq_dir.exists():
-            files = sorted(seq_dir.glob("*.npy"))
-            frame_points = [np.load(fp) for fp in files]
-            poses = [np.eye(4)] * len(frame_points)
-        else:
+        loaded = load_sequence_points(args.points_root, seq)
+        if loaded is None:
             logger.warning(f"no points for {seq}, skipping")
             continue
+        frame_points, poses = loaded
         recs = daemon.prepare_object_data(tr, frame_points, poses,
                                           enlarge=args.enlarge)
         by_cls = {}

@@ -959,3 +959,59 @@ def test_tiny_two_stage_card_vs_cpu(dev):
         bound = 1e-3 * float(r.abs().max()) + 1e-6
         n_out = int(((grads[1][k] - r).abs() > bound).sum())
         assert n_out <= 1e-3 * r.numel(), (k, n_out)
+
+
+def test_offboard_pipeline_card_vs_cpu(dev):
+    """OffboardPipeline with tiny GRM, PRM and CRM (D_MODEL 32, seeded
+    weights) on the card against the same models on the CPU, on a seeded
+    sequence of 12 frames (a moving vehicle and a pedestrian): final boxes
+    and scores within 1e-4 of scale, equal obj ids and labels."""
+    import torch_refine_cases as cases
+    from detzero_tpu_torch.core.registry import REFINE_MODULES
+    import detzero_tpu_torch.models.refining  # noqa: F401 (registers)
+    from detzero_tpu_torch.pipeline.offboard import OffboardPipeline
+
+    rng = np.random.RandomState(0)
+    dets, frame_pts, poses = [], [], []
+    for f in range(12):
+        gt = np.array([[5 + f * 0.8, 0, 0, 4.4, 2.0, 1.5, 0.1],
+                       [20, 10, 0, 0.9, 0.9, 1.7, 0.0]], np.float32)
+        noisy = gt.copy()
+        noisy[:, :2] += rng.randn(2, 2) * 0.05
+        dets.append({"boxes": noisy, "scores": np.array([0.9, 0.8]),
+                     "labels": np.array([0, 1]), "pose": np.eye(4)})
+        xyz = np.concatenate([rng.uniform(-0.5, 0.5, (80, 3)) * b[3:6] * 0.9
+                              + b[:3] for b in gt]
+                             + [rng.uniform(-30, 30, (300, 3))])
+        frame_pts.append(np.concatenate([xyz, rng.rand(len(xyz), 1)], 1)
+                         .astype(np.float32))
+        poses.append(np.eye(4))
+    samplers = {"grm": {"query_num": cases.Q, "query_points": cases.NP,
+                        "memory_points": cases.M},
+                "prm": {"query_num": cases.T, "query_points": cases.NP,
+                        "memory_points": cases.NM}}
+    samplers["crm"] = samplers["prm"]
+    outs = []
+    for device in ("cpu", dev):
+        stages = {}
+        for seed, kind in enumerate(("grm", "prm", "crm")):
+            kw = {"d_model": cases.D_MODEL, "device": "cpu"}
+            if kind != "crm":
+                kw["n_heads"] = cases.HEADS
+            if kind == "grm":
+                kw["anchors"] = cases.ANCHORS
+            m = REFINE_MODULES.get(cases.NAMES[kind])(**kw)
+            m.init_parameters(torch.Generator().manual_seed(seed))
+            stages[kind] = (m.to(device), samplers[kind])
+        outs.append(OffboardPipeline({"TRACKING": {"SCORE_THRESH": 0.5}},
+                                     **stages).run_sequence(
+            dets, frame_pts, poses)["frames"])
+    torch.cuda.synchronize()
+    assert len(outs[1]) == 12 and sum(len(f["boxes"]) for f in outs[1]) > 0
+    for a, b in zip(*outs):
+        assert np.array_equal(a["obj_ids"], b["obj_ids"])
+        assert np.array_equal(a["labels"], b["labels"])
+        for k in ("boxes", "scores"):
+            assert np.isfinite(b[k]).all()
+            assert np.abs(a[k] - b[k]).max(initial=0) <= \
+                1e-4 * max(np.abs(a[k]).max(initial=0), 1.0), k

@@ -1,9 +1,12 @@
-"""detzero_tpu_torch imports neither jax, flax, yaml nor detzero_tpu
-(predict, one training step, the two-stage predict and loss, one step of
-the training entry point from its config and loader, the inference entry
-point on its checkpoint, the tracker on its output, and the refining
-stage (the daemon's records of those tracks, one GRM training step,
-GRM's inference on its checkpoint) run with them blocked; no source file of the package, nor chip_smoke.py or
+"""detzero_tpu_torch imports neither jax, flax, yaml, google.protobuf,
+google_crc32c nor detzero_tpu (predict, one training step, the two-stage
+predict and loss, one step of the training entry point from its config
+and loader, the inference entry point on its checkpoint, the tracker on
+its output, the refining stage (the daemon's records of those tracks, one
+GRM training step, GRM's inference on its checkpoint), and preprocessing
+and the offboard pipeline (a tfrecord through the codec and the native CRC,
+infos, GT database, run_offboard on that tree, a submission .bin) run
+with them blocked; no source file of the package, nor chip_smoke.py or
 chip_profile.py, names them in an import), and on CPU tensors every
 kernel wrapper takes its plain version (no launch counted); on a tensor that is neither CPU nor CUDA a wrapper raises instead
 of falling back; and without a card the model is built only when the
@@ -77,6 +80,19 @@ MAIN_PATH = [
     "detzero_tpu_torch.tools.build_record_cache",
     "detzero_tpu_torch.tools.train_refine",
     "detzero_tpu_torch.tools.test_refine",
+    "detzero_tpu_torch.protos", "detzero_tpu_torch.protos.wire",
+    "detzero_tpu_torch.protos.waymo_dataset_pb2",
+    "detzero_tpu_torch.protos.waymo_label_pb2",
+    "detzero_tpu_torch.protos.waymo_metrics_pb2",
+    "detzero_tpu_torch.data.tfrecord_io",
+    "detzero_tpu_torch.data.waymo_preprocess",
+    "detzero_tpu_torch.core.profiling",
+    "detzero_tpu_torch.pipeline.offboard", "detzero_tpu_torch.pipeline.submit",
+    "detzero_tpu_torch.utils", "detzero_tpu_torch.utils.webviewer",
+    "detzero_tpu_torch.tools.create_waymo_infos",
+    "detzero_tpu_torch.tools.combine_output",
+    "detzero_tpu_torch.tools.detzero_eval",
+    "detzero_tpu_torch.tools.run_offboard",
 ]
 
 SCRIPT = """
@@ -84,6 +100,8 @@ import importlib, json, sys
 sys.modules["jax"] = None      # any import of jax now raises
 sys.modules["flax"] = None
 sys.modules["yaml"] = None
+sys.modules["google.protobuf"] = None
+sys.modules["google_crc32c"] = None
 # TensorBoard's writer would load TensorFlow (12 s); the trainer runs
 # without it, as on the card's machine
 sys.modules["torch.utils.tensorboard"] = None
@@ -175,16 +193,76 @@ with tempfile.TemporaryDirectory() as tmp:
               .step_count,
               test_refine.main(rcli + ["--save_to_file"] + rset)["step"],
               daemon.NATIVE_FRAMES + daemon.NUMPY_FRAMES > 0]
+    # preprocessing and the offboard pipeline: a record of one frame through
+    # the codec and the native CRC, infos and GT database, run_offboard on
+    # that tree (no refiners), a submission .bin read back
+    import zlib
+    from detzero_tpu_torch.data import tfrecord_io
+    from detzero_tpu_torch.data import waymo_preprocess as wp
+    from detzero_tpu_torch.pipeline import submit
+    from detzero_tpu_torch.protos import waymo_dataset_pb2 as wpb
+    from detzero_tpu_torch.protos import waymo_metrics_pb2 as mpb
+    from detzero_tpu_torch.tools import create_waymo_infos, run_offboard
+    fr = wpb.Frame()
+    fr.context.name = "ctx"
+    fr.timestamp_micros = 7
+    fr.pose.transform.extend(np.eye(4).ravel().tolist())
+    cal = fr.context.laser_calibrations.add()
+    cal.name = wpb.LaserName.TOP
+    cal.beam_inclination_min, cal.beam_inclination_max = -0.3, 0.05
+    cal.extrinsic.transform.extend(np.eye(4).ravel().tolist())
+    las = fr.lasers.add()
+    las.name = wpb.LaserName.TOP
+    ri = np.zeros((8, 32, 4), np.float32)
+    ri[:, :, 0] = 10.0
+    ri[..., 3] = -1
+    las.ri_return1.range_image_compressed = wp.encode_matrix(ri)
+    lbl = fr.laser_labels.add()
+    lbl.box.length, lbl.box.width, lbl.box.height = 4.0, 2.0, 1.5
+    lbl.box.center_x = 9.0
+    lbl.type = wpb.Label.TYPE_VEHICLE
+    root = Path(tmp, "waymo")
+    (root / "raw").mkdir(parents=True)
+    (root / "ImageSets").mkdir()
+    (root / "ImageSets" / "val.txt").write_text("seg")
+    tfrecord_io.write_tfrecord(root / "raw" / "seg.tfrecord",
+                               [fr.SerializeToString()] * 2)
+    infos = create_waymo_infos.main([
+        "--stage", "infos", "--raw_dir", str(root / "raw"), "--out_dir",
+        str(root / "proc"), "--split_file", str(root / "ImageSets" / "val.txt"),
+        "--workers", "1"])
+    db = create_waymo_infos.main([
+        "--stage", "gt_database", "--infos_path",
+        str(root / "waymo_infos_val.pkl"), "--out_dir", str(root / "proc"),
+        "--db_out", str(root / "db.pkl")])
+    dets = [{{"boxes_lidar": i["annos"]["gt_boxes_lidar"],
+             "score": np.ones(1), "name": i["annos"]["name"],
+             "sequence_name": "seg", "frame_id": k, "pose": i["pose"]}}
+            for k, i in enumerate(infos)]
+    (root / "dets.pkl").write_bytes(pickle.dumps(dets))
+    off = run_offboard.main(["--det_path", str(root / "dets.pkl"),
+                             "--points_root", str(root / "proc"),
+                             "--output_dir", str(root / "off")])
+    recs = submit.build_submission_records(
+        dets, [{{"context_name": "ctx", "frame_timestamp_micros": 7}}] * 2)
+    objs = mpb.Objects()
+    objs.ParseFromString(submit.write_submission(
+        recs, root / "sub.bin").read_bytes())
+    offboard = [len(infos), len(db["Vehicle"]),
+                len(list(tfrecord_io.read_tfrecord(
+                    root / "raw" / "seg.tfrecord", verify_crc=True))),
+                sorted(off["timings"]), len(objs.objects)]
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu",
-                                    "yaml")
+             if (k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu",
+                                     "yaml", "google_crc32c")
+                 or k.startswith("google.protobuf"))
              and sys.modules[k] is not None)
 print(json.dumps({{"bad": bad, "kept": int(out["mask"].sum()),
     "finite": bool(torch.isfinite(loss) and torch.isfinite(gnorm)),
     "two_stage": [list(out2["boxes"].shape), int(out2["mask"].sum()),
                   bool(torch.isfinite(out2["boxes"]).all()),
                   bool(torch.isfinite(loss2))],
-    "cli": cli, "refine": refine, "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
+    "cli": cli, "refine": refine, "offboard": offboard, "launches": [stream_vfe.LAUNCHES, rowpad_conv.LAUNCHES,
                  rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
                  iou_bev.LAUNCHES, iou_bev.OVERLAP_LAUNCHES,
                  iou_bev.PAIRWISE_LAUNCHES, nms.LAUNCHES,
@@ -206,6 +284,8 @@ def test_port_imports_no_jax_and_cpu_takes_plain_versions():
     assert res["two_stage"] == [[1, 8, 7], 8, True, True]
     assert res["cli"] == [1, 1, 1, ["synthetic_000"]]
     assert res["refine"] == [1, 1, True]
+    assert res["offboard"] == [2, 1, 2, ["combine", "prepare_objects",
+                                         "refine", "track"], 2]
     assert res["launches"] == [0] * 10
 
 
@@ -227,7 +307,7 @@ def _imported_roots(path):
 def test_no_source_imports_jax_yaml_or_the_reference(path):
     roots = _imported_roots(REPO / path)
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax", "yaml",
-                        "detzero_tpu"}, path
+                        "detzero_tpu", "google", "google_crc32c"}, path
 
 
 def test_wrappers_raise_off_cpu_and_cuda():
