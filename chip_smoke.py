@@ -139,7 +139,26 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      submission .bin of test_det's detections keyed by the infos'
      context names and timestamps, decoded back equal (bytes printed);
      the phase must end within 150 s.  Its test_det launches are the path
-     `OB` of the kernels line.
+     `OB` of the kernels line;
+ 16. data parallelism on the one card, on phase 12's tree and checkpoint
+     (NCCL puts no two ranks on one card, so the 2-rank runs join a gloo
+     group on CUDA tensors, both on cuda:0): train_det to 3 steps with no
+     process group and again as world size 1 of an NCCL group, cuDNN
+     deterministic in both: metrics and checkpoint equal bit for bit;
+     then 2 spawned gloo ranks (one process each): the tiny float32
+     model, 2 ranks x 1 sample against one process x 2 samples on the
+     card (loss within 1e-5 relative, gradient under the tiny training
+     check's rule, BN statistics within 1e-5); train_det at the
+     flagship's width, 2 ranks x BATCH_SIZE_PER_DEVICE, parameters,
+     optimizer state and BN buffers compared across the ranks bit for bit
+     after each of 3 steps, then resumed to step 5 under torch.profiler
+     (ms/step a rank, peak memory a rank, each rank's idle share and the
+     card's over the union of both ranks' kernels); test_det
+     --data_parallel on phase 12's checkpoint, its result.pkl against
+     phase 13's (the same frames in order, as many boxes, the same names,
+     boxes and scores within 1e-4); launches held to the one-stage step's
+     a step and test_det's a sample on each rank; within 300 s.  The
+     2-rank runs' launches, summed over the ranks, are the path `DP`.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -3262,6 +3281,405 @@ def run_offboard_phase(device, tmp, det_ckpt, refine_ckpts):
     return launches
 
 
+# phase 16: data parallelism on the one card.  NCCL puts no two ranks on one
+# card, so the 2-rank runs join a gloo group on CUDA tensors, both ranks on
+# cuda:0; the NCCL path runs at world size 1.
+DP_WORLD = 2
+DP_STEPS = 3                 # the 2-rank run's checked steps, then 2 more
+DP_PHASE_S = 300.0
+# test_det --data_parallel against phase 13's result.pkl: the same frames in
+# the same order and as many boxes; boxes (m, rad) and scores within this.
+# Each rank predicts the pairs of frames phase 13 predicts, through the same
+# kernels, so the bits should agree; the bound leaves room only for cuDNN
+# picking another algorithm while two processes share the card
+DP_BOX_TOL = 1e-4
+
+
+def _kernel_spans(prof):
+    """The card's kernel intervals of a torch.profiler run on the
+    profiler's own clock (us), which every process on a host shares, and
+    the run's start there."""
+    base = prof.profiler.kineto_results.trace_start_ns() / 1e3
+    return base, [(base + e.time_range.start, base + e.time_range.end)
+                  for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+def _union_us(spans):
+    total, cur_s, cur_e = 0.0, None, None
+    for a, b in sorted(spans):
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    return total + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def dp_tiny_grads(model, batch, trainer=None):
+    """The tiny model's loss, its (rank-averaged, with a trainer under a
+    group) gradient and BN running statistics after one forward and
+    backward on `batch`."""
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(**batch)
+    loss.backward()
+    if trainer is not None:
+        trainer.average_gradients()
+    return (float(loss.detach()),
+            {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+            {k: b.detach().clone() for k, b in model.named_buffers()})
+
+
+def dp_rank(rank, world, device, tmp, yaml_path, det_ckpt):
+    """One rank of phase 16's gloo group (a spawned process, on cuda:0):
+    the tiny float32 model's gradient on this rank's sample; train_det on
+    phase 12's tree to DP_STEPS steps with the ranks compared bit for bit
+    after each, then resumed for 2 more under torch.profiler; test_det
+    --data_parallel on phase 12's checkpoint.  Writes its readings to
+    tmp/rank<r>.pt."""
+    import torch
+    from detzero_tpu_torch.core import mesh
+    from detzero_tpu_torch.core.optim import build_optimizer
+    from detzero_tpu_torch.parallel.trainer import Trainer
+    from detzero_tpu_torch.tools import test_det, train_det
+    from torch.profiler import ProfilerActivity, profile
+
+    device = torch.device(device)
+    tmp = Path(tmp)
+    mesh.init_distributed(backend="gloo", device=device,
+                          init_method=f"file://{tmp}/rdv", rank=rank,
+                          world_size=world)
+    os.chdir(REPO)
+    out = {}
+    try:
+        # 3. the tiny float32 model, one sample a rank
+        model = build_model(TINY_TRAIN_CFG, TINY_KW, torch.float32, device)
+        batch = {k: v[rank:rank + 1] for k, v in
+                 tiny_train_batch(TINY_TRAIN_DRAWS[0], device).items()}
+        trainer = Trainer(model, build_optimizer(FLAGSHIP_OPT, 2, model))
+        out["tiny"] = [x if isinstance(x, float) else
+                       {k: v.cpu() for k, v in x.items()}
+                       for x in dp_tiny_grads(model, batch, trainer)]
+        del model, trainer
+        torch.cuda.empty_cache()
+
+        # 2. train_det at the flagship's width, each step checked
+        args = ["--cfg_file", str(yaml_path), "--device", str(device),
+                "--workers", "0", "--output_dir", str(tmp / "output"),
+                "--log_every", "1"]
+        steps, step = [], Trainer.step
+
+        def checked(self, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(self, b)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "loss": float(res[0]), "gnorm": float(res[2]),
+                          "mismatch": self.replica_mismatch()})
+            return res
+
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        Trainer.step = checked
+        try:
+            trainer = train_det.main(args + ["--max_steps", str(DP_STEPS)])
+        finally:
+            Trainer.step = step
+        torch.cuda.synchronize()
+        out["train_counts"] = read_counts()
+        out["steps"] = steps
+        del trainer
+        # resumed for 2 steps under torch.profiler, unchecked
+        reset_counts()
+        fit = Trainer.fit
+
+        def profiled(self, *a, **kw):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = fit(self, *a, **kw)
+                torch.cuda.synchronize()
+                out["fit_ms"] = (time.perf_counter() - t0) * 1e3
+            out["fit_start"], out["spans"] = _kernel_spans(prof)
+            return res
+
+        Trainer.fit = profiled
+        try:
+            trainer = train_det.main(args + ["--max_steps",
+                                             str(DP_STEPS + 2)])
+        finally:
+            Trainer.fit = fit
+        torch.cuda.synchronize()
+        out["resumed_counts"] = read_counts()
+        out["step_count"] = trainer.step_count
+        out["final_mismatch"] = trainer.replica_mismatch()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        out["state"] = {k: v.cpu() for k, v in
+                        trainer.model.state_dict().items()}
+        del trainer
+        torch.cuda.empty_cache()
+
+        # 4. test_det --data_parallel on phase 12's checkpoint
+        reset_counts()
+        res = test_det.main([
+            "--data_parallel", "--cfg_file", str(yaml_path), "--device",
+            str(device), "--workers", "2", "--output_dir",
+            str(tmp / "output"), "--ckpt", str(det_ckpt), "--save_to_file",
+            "--set", *DET_SET])
+        torch.cuda.synchronize()
+        out["test_counts"] = read_counts()
+        out["test"] = None if res is None else {
+            "path": str(res["result_path"]), "step": res["step"],
+            "timings": res["timings"]}
+        torch.save(out, tmp / f"rank{rank}.pt")
+        mesh.barrier()
+    finally:
+        mesh.shutdown()
+
+
+def spawn_ranks(fn, world, timeout_s, *args):
+    """Runs fn(rank, world, *args) in `world` spawned processes; raises
+    with a rank's traceback when one fails, or after timeout_s."""
+    import torch.multiprocessing as tmp_mp
+
+    ctx = tmp_mp.start_processes(fn, args=(world, *args), nprocs=world,
+                                 join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"{world} ranks outlasted {timeout_s:.0f} "
+                                 f"s")
+
+
+def nccl_one_rank(device, tmp, yaml_path):
+    """Phase 16 (1): train_det to DP_STEPS steps with no process group,
+    then again as world size 1 of an NCCL group: the metrics and the
+    final checkpoint must be equal bit for bit.  cuDNN runs deterministic
+    in both, so two runs of the one step may be compared at all."""
+    import torch
+    from detzero_tpu_torch.core import mesh
+    from detzero_tpu_torch.core.checkpoint import CheckpointManager
+    from detzero_tpu_torch.tools import train_det
+
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in ("none", "nccl"):
+            out = Path(tmp) / f"nccl_{name}"
+            if name == "nccl":
+                mesh.init_distributed(backend="nccl", device=device,
+                                      init_method=f"file://{tmp}/nccl_rdv",
+                                      rank=0, world_size=1)
+            try:
+                trainer = train_det.main([
+                    "--cfg_file", str(yaml_path), "--device", str(device),
+                    "--workers", "0", "--output_dir", str(out),
+                    "--log_every", "1", "--max_steps", str(DP_STEPS)])
+                if (trainer.mesh.group is None) != (name == "none"):
+                    raise AssertionError(f"{name}: the trainer's group is "
+                                         f"{trainer.mesh.group}")
+                ckpt = trainer.ckpt.ckpt_dir
+                del trainer
+            finally:
+                mesh.shutdown()
+            lines = [json.loads(x) for x in
+                     (ckpt / "metrics.jsonl").read_text().splitlines()]
+            runs[name] = ([(x["loss"], x["gnorm"]) for x in lines],
+                          CheckpointManager(ckpt).restore_any()[0])
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (m0, c0), (m1, c1) = runs["none"], runs["nccl"]
+    same = m0 == m1 and c0["model"].keys() == c1["model"].keys() and all(
+        torch.equal(v, c1["model"][k]) for k, v in c0["model"].items())
+    for i in c0["optimizer"]["state"]:
+        for k, v in c0["optimizer"]["state"][i].items():
+            w = c1["optimizer"]["state"][i][k]
+            same = same and (torch.equal(v, w) if torch.is_tensor(v)
+                             else v == w)
+    print(f"[data parallel] NCCL world 1 against no group, {DP_STEPS} "
+          f"steps of train_det: (loss, gnorm) " + "; ".join(
+              f"{a[0]:.6f}, {a[1]:.6f} | {b[0]:.6f}, {b[1]:.6f}"
+              for a, b in zip(m0, m1))
+          + f"; parameters, buffers and optimizer state bit-equal: {same}")
+    if not same:
+        raise AssertionError("train_det under an NCCL group of one rank "
+                             "differs from the run without a group")
+
+
+def run_data_parallel(device, tmp, yaml_path, det_ckpt, phase13_result):
+    """Phase 16 in the directory `tmp`: (1) NCCL at world size 1 against
+    no group; (2)-(4) DP_WORLD gloo ranks on the card (dp_rank): the tiny
+    float32 gradient against one process on both samples, train_det at
+    the flagship's width with the ranks bit-equal after every step, and
+    test_det --data_parallel against phase 13's result.pkl.  Returns
+    {kernel name: launches} of the 2-rank runs (train_det and test_det),
+    summed over the ranks."""
+    import pickle
+
+    import torch
+    from detzero_tpu_torch.tools import common
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        nccl_one_rank(device, tmp, yaml_path)
+        cfg = common.load_config(common.base_parser("").parse_args(
+            ["--cfg_file", str(yaml_path)]))
+        n_frames = TREE_FRAMES
+        per_rank_batch = int(cfg["OPTIMIZATION"]["BATCH_SIZE_PER_DEVICE"])
+    finally:
+        os.chdir(cwd)
+
+    t0 = time.perf_counter()
+    spawn_ranks(dp_rank, DP_WORLD, DP_PHASE_S, str(device), str(tmp),
+                str(yaml_path), str(det_ckpt))
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_WORLD)]
+
+    # (3) the tiny model: DP_WORLD ranks x 1 sample against one process x
+    # DP_WORLD samples, on the card
+    model = build_model(TINY_TRAIN_CFG, TINY_KW, torch.float32, device)
+    loss1, grads1, stats1 = dp_tiny_grads(
+        model, tiny_train_batch(TINY_TRAIN_DRAWS[0], device))
+    del model
+    loss2 = sum(r["tiny"][0] for r in ranks) / DP_WORLD
+    agree = grad_agreement(grads1, ranks[0]["tiny"][1])
+    stat_err = max(float((ranks[0]["tiny"][2][k] - v.cpu()).abs().max())
+                   / max(float(v.abs().max()), 1.0)
+                   for k, v in stats1.items())
+    tiny_equal = all(torch.equal(ranks[0]["tiny"][i][k],
+                                 ranks[1]["tiny"][i][k])
+                     for i in (1, 2) for k in ranks[0]["tiny"][i])
+    print(f"[data parallel] tiny float32, {DP_WORLD} gloo ranks x 1 sample "
+          f"against 1 process x {DP_WORLD}: loss {loss2:.6f} against "
+          f"{loss1:.6f} (rel {abs(loss2 - loss1) / abs(loss1):.2e}); "
+          f"gradient " + ", ".join(f"{k} {v:.4g}" for k, v in agree.items())
+          + f"; BN statistics rel {stat_err:.2e}; ranks bit-equal "
+          f"{tiny_equal}")
+    if not (abs(loss2 - loss1) <= 1e-5 * abs(loss1) and stat_err <= 1e-5
+            and tiny_equal and agree["out_share"] <= 1e-4
+            and agree["min_leaf_share"] >= 0.9
+            and abs(agree["norm_ratio"] - 1.0) <= 1e-2):
+        raise AssertionError(f"tiny 2-rank check: loss {loss2} against "
+                             f"{loss1}, gradient {agree}, BN {stat_err}, "
+                             f"ranks equal {tiny_equal}")
+
+    # (2) train_det at the flagship's width
+    want = step_launches()
+    for r, rk in enumerate(ranks):
+        bad = [s["mismatch"] for s in rk["steps"] if s["mismatch"]]
+        if len(rk["steps"]) != DP_STEPS or bad or rk["final_mismatch"] or \
+                rk["step_count"] != DP_STEPS + 2:
+            raise AssertionError(f"rank {r}: {len(rk['steps'])} checked "
+                                 f"steps, mismatches {bad} "
+                                 f"{rk['final_mismatch']}, ended at step "
+                                 f"{rk['step_count']}")
+        for key, n in (("train_counts", DP_STEPS), ("resumed_counts", 2)):
+            if rk[key] != {k: n * v for k, v in want.items()}:
+                raise AssertionError(f"rank {r} {key}: {rk[key]}, expected "
+                                     f"{n} x {want}")
+        if not all(np.isfinite(s["loss"]) and np.isfinite(s["gnorm"])
+                   for s in rk["steps"]):
+            raise AssertionError(f"rank {r}: a loss or gnorm not finite")
+    if not all(torch.equal(v, ranks[1]["state"][k])
+               for k, v in ranks[0]["state"].items()):
+        raise AssertionError("the ranks' final states differ")
+    if [s["gnorm"] for s in ranks[0]["steps"]] != \
+            [s["gnorm"] for s in ranks[1]["steps"]]:
+        raise AssertionError("the ranks' gradient norms differ")
+    starts = [rk["fit_start"] for rk in ranks]
+    ends = [rk["fit_start"] + rk["fit_ms"] * 1e3 for rk in ranks]
+    window = max(ends) - min(starts)
+    busy = _union_us([sp for rk in ranks for sp in rk["spans"]])
+    own = [1.0 - _union_us(rk["spans"]) / (rk["fit_ms"] * 1e3)
+           for rk in ranks]
+    card_idle = 1.0 - busy / window
+    for r, rk in enumerate(ranks):
+        ms = [s["ms"] for s in rk["steps"]]
+        print(f"[data parallel] {smi}: rank {r}: train_det steps "
+              + ", ".join(f"{t:.1f}" for t in ms)
+              + f" ms ({per_rank_batch} samples a rank, global batch "
+              f"{per_rank_batch * DP_WORLD}); loss " + ", ".join(
+                  f"{s['loss']:.4f}" for s in rk["steps"])
+              + f"; gnorm " + ", ".join(f"{s['gnorm']:.4f}"
+                                        for s in rk["steps"])
+              + f"; resumed fit {rk['fit_ms'] / 2:.1f} ms/step over steps "
+              f"{DP_STEPS + 1}-{DP_STEPS + 2}, its own idle share "
+              f"{own[r]:.3f}; peak memory {rk['peak_gib']:.2f} GiB")
+    print(f"[data parallel] {smi}: the card over both ranks' resumed fit "
+          f"(the union of their kernels): busy {busy / 1e3:.1f} of "
+          f"{window / 1e3:.1f} ms, idle share {card_idle:.3f}; peak memory {sum(r['peak_gib'] for r in ranks):.2f}"
+          f" GiB summed over the ranks; parameters, optimizer state and BN "
+          f"buffers bit-equal across the ranks after each of {DP_STEPS} "
+          f"steps and at step {DP_STEPS + 2}")
+    if not 0.0 <= card_idle <= 1.0:
+        print("[data parallel] the ranks' profiler clocks disagree: the "
+              "card's idle share over both is not measured")
+
+    # (4) test_det --data_parallel against phase 13's result
+    per_sample = {"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
+                  "rowpad_nbr": NBR_LAUNCHES, "nms_walk": 1}
+    test_want = dict.fromkeys(COUNTERS, 0)
+    test_want.update({k: v * n_frames // DP_WORLD
+                      for k, v in per_sample.items()})
+    if ranks[1]["test"] is not None or ranks[0]["test"] is None:
+        raise AssertionError("test_det returned on a rank other than 0, or "
+                             "not on rank 0")
+    for r, rk in enumerate(ranks):
+        if rk["test_counts"] != test_want:
+            raise AssertionError(f"rank {r} test_det launches "
+                                 f"{rk['test_counts']}, expected "
+                                 f"{test_want}")
+    with open(ranks[0]["test"]["path"], "rb") as f:
+        dp = pickle.load(f)
+    with open(phase13_result, "rb") as f:
+        one = pickle.load(f)
+    ids = [(d["sequence_name"], d["frame_id"]) for d in dp]
+    if ids != [(d["sequence_name"], d["frame_id"]) for d in one] or \
+            [len(d["name"]) for d in dp] != [len(d["name"]) for d in one]:
+        raise AssertionError("test_det --data_parallel: frames or box counts "
+                             "differ from phase 13's")
+    box_err = max((float(np.abs(a["boxes_lidar"] - b["boxes_lidar"]).max())
+                   for a, b in zip(dp, one) if len(a["name"])), default=0.0)
+    score_err = max((float(np.abs(a["score"] - b["score"]).max())
+                     for a, b in zip(dp, one) if len(a["name"])),
+                    default=0.0)
+    names_equal = all(np.array_equal(a["name"], b["name"])
+                      for a, b in zip(dp, one))
+    t = ranks[0]["test"]["timings"]
+    wall = t["load_s"] + t["predict_s"] + t["wbf_s"]
+    print(f"[data parallel] {smi}: test_det --data_parallel on "
+          f"{DP_WORLD} ranks, checkpoint step {ranks[0]['test']['step']}: "
+          f"{len(dp)} frames, {sum(len(d['name']) for d in dp)} boxes; "
+          f"rank 0 {t['samples']} samples at {t['samples'] / wall:.3f} "
+          f"frames/s; against phase 13: frames and counts equal, names "
+          f"equal {names_equal}, boxes max err {box_err:.3g}, scores "
+          f"{score_err:.3g} (bound {DP_BOX_TOL})")
+    if not (names_equal and box_err <= DP_BOX_TOL
+            and score_err <= DP_BOX_TOL):
+        raise AssertionError("test_det --data_parallel differs from phase "
+                             "13's result")
+    total = time.perf_counter() - t_phase
+    print(f"[data parallel] phase 16 in {total:.1f} s (the ranks "
+          f"{ranks_s:.1f} s)")
+    if total > DP_PHASE_S:
+        raise AssertionError(f"phase 16 took {total:.1f} s, over "
+                             f"{DP_PHASE_S:.0f}")
+    return {k: sum(rk["train_counts"][k] + rk["resumed_counts"][k]
+                   + rk["test_counts"][k] for rk in ranks)
+            for k in COUNTERS}
+
+
 def main():
     import torch
 
@@ -3368,11 +3786,20 @@ def main():
 
         # 15. the offboard pipeline from raw records, on phase 12's
         # checkpoint and phase 14's Vehicle refiners
+        det_exp = det_tmp / "output" / yaml_path.stem / "default"
         by_path["OB"] = run_offboard_phase(
-            device, Path(tmp) / "offboard",
-            det_tmp / "output" / yaml_path.stem / "default" / "ckpt",
+            device, Path(tmp) / "offboard", det_exp / "ckpt",
             {kind: ref_tmp / "output" / Path(yaml).stem / "default" / "ckpt"
              for kind, yaml in REFINE_CFGS.items()})
+        torch.cuda.empty_cache()
+
+        # 16. data parallelism: NCCL at world size 1, then 2 gloo ranks on
+        # the card on phase 12's tree and checkpoint
+        dp_tmp = Path(tmp) / "data_parallel"
+        dp_tmp.mkdir()
+        by_path["DP"] = run_data_parallel(device, dp_tmp, yaml_path,
+                                          det_exp / "ckpt",
+                                          det_exp / "result.pkl")
     torch.cuda.empty_cache()
 
     # result lines

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 
+from detzero_tpu_torch.core.mesh import rank_rng
 from detzero_tpu_torch.ops import box_np
 
 
@@ -40,7 +41,8 @@ class DataBaseSampler:
                     logger.info("gt database: " + ", ".join(
                         f"{k}:{len(v)}" for k, v in self.db.items()))
         self.min_points = cfg.get("MIN_POINTS", 5)
-        self.rng = np.random.RandomState(cfg.get("SEED", None))
+        # SEED on rank 0, (SEED, rank) on the others (core/mesh.rank_rng)
+        self.rng = rank_rng(cfg.get("SEED", None))
 
     def set_database(self, db):
         """Inject an in-memory database (tests / programmatic use)."""

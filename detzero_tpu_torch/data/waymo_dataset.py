@@ -329,28 +329,47 @@ class SyntheticWaymoDataset(DatasetTemplate):
 
 
 def build_dataloader(dataset, batch_size: int, shuffle: bool, num_workers: int = 0,
-                     seed: int = 0, drop_last: bool = True):
+                     seed: int = 0, drop_last: bool = True, rank: int = 0,
+                     world: int = 1):
     """Epoch iterator over the dataset with the fixed-shape collate:
     `build_dataloader(...)(ep)` yields epoch ep's batches, in an order
     shuffled by RandomState(seed + ep), with `num_workers` threads
     assembling each batch's samples.  Samples are numpy and the model
-    consumes whole batches, so no torch DataLoader is needed."""
+    consumes whole batches, so no torch DataLoader is needed.
+
+    Data parallelism (`world` > 1): the global batches are those of one
+    process at batch_size * world, and rank `rank` yields samples
+    [rank * batch_size, (rank + 1) * batch_size) of each.  Without
+    drop_last the tail global batch is filled up with copies of its last
+    sample (the reference's eval pads its tail batch so, tools/
+    test_det.py:84-88), so every rank yields as many full batches; the
+    copies are the end of the gathered order, which the caller cuts at
+    the dataset's length."""
     import concurrent.futures as cf
+
+    step = batch_size * world
 
     def epoch(ep=0):
         order = np.arange(len(dataset))
         if shuffle:
             np.random.RandomState(seed + ep).shuffle(order)
-        n = (len(order) // batch_size * batch_size if drop_last else len(order))
-        if num_workers > 0:
-            with cf.ThreadPoolExecutor(num_workers) as pool:
-                for i in range(0, n, batch_size):
-                    samples = list(pool.map(dataset.__getitem__,
-                                            order[i:i + batch_size]))
-                    yield dataset.collate_batch(samples)
-        else:
-            for i in range(0, n, batch_size):
-                yield dataset.collate_batch(
-                    [dataset[j] for j in order[i:i + batch_size]])
+        n = (len(order) // step * step if drop_last else len(order))
+        pool = cf.ThreadPoolExecutor(num_workers) if num_workers > 0 \
+            else None
+        try:
+            for i in range(0, n, step):
+                idx = order[i:i + step]
+                if world > 1:
+                    idx = np.concatenate([idx, np.repeat(
+                        idx[-1:], step - len(idx))])
+                    idx = idx[rank * batch_size:(rank + 1) * batch_size]
+                if pool is not None:
+                    samples = list(pool.map(dataset.__getitem__, idx))
+                else:
+                    samples = [dataset[j] for j in idx]
+                yield dataset.collate_batch(samples)
+        finally:
+            if pool is not None:
+                pool.shutdown()
 
     return epoch

@@ -16,8 +16,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from detzero_tpu_torch.core.mesh import data_group
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99      # running = m * running + (1 - m) * batch
@@ -44,7 +47,10 @@ class _MaskedBNTrain(torch.autograd.Function):
     """Train-mode BN of the reference (`layers.py:59-99`) in float32: the
     statistics come from the sites `mask` marks (every site when None), the
     variance is the biased max(E[x^2] - mean^2, 0), and the gradient flows
-    through mean and variance, as flax differentiates it.  Returns
+    through mean and variance, as flax differentiates it.  Under a process
+    group (core/mesh.py) the statistics are the global batch's: the
+    forward all-reduces (cnt, s, ss) and the backward (sum g, sum g x), as
+    the reference's psum over the data axis and its transpose do.  Returns
     (y in x's dtype, mean, var).  The backward is the analytic one, so
     autograd keeps only x, not the float32 intermediates (at the first
     level a float32 copy of the table is about 1 GB)."""
@@ -64,6 +70,14 @@ class _MaskedBNTrain(torch.autograd.Function):
             cnt = mask.sum(dtype=torch.float32)
             s, ss = xm.sum(dims), (xm * xf).sum(dims)
             del xm
+        group = data_group()
+        if group is not None:
+            # the statistics of the global batch: one all-reduce of the
+            # packed (cnt, s, ss), as the reference psums them
+            c = s.shape[0]
+            packed = torch.cat([cnt.reshape(1), s, ss])
+            dist.all_reduce(packed, group=group)
+            cnt, s, ss = packed[0], packed[1:c + 1], packed[c + 1:]
         cnt = torch.clamp(cnt, min=1.0)
         mean = s / cnt
         var = torch.clamp(ss / cnt - mean * mean, min=0.0)
@@ -72,6 +86,7 @@ class _MaskedBNTrain(torch.autograd.Function):
         y = y * scale.reshape(shape) + bias.reshape(shape)
         ctx.save_for_backward(x, mask, scale, mean, rstd, cnt)
         ctx.ch = ch
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y.to(x.dtype), mean, var
 
@@ -85,11 +100,24 @@ class _MaskedBNTrain(torch.autograd.Function):
         g = gy.float()
         xf = x.float()
         sum_g = g.sum(dims)
+        sum_gx = (g * xf).sum(dims)
         # sum of g * xhat with xhat = (x - mean) * rstd
-        sum_gxhat = rstd * ((g * xf).sum(dims) - mean * sum_g)
+        sum_gxhat = rstd * (sum_gx - mean * sum_g)
+        tot_g, tot_gxhat = sum_g, sum_gxhat
+        if ctx.group is not None:
+            # mean and variance are the global batch's, so every rank's
+            # outputs move them: the gradient reaching them is the sum
+            # over ranks, one all-reduce of the packed (sum_g, sum_gx).
+            # The scale and bias gradients stay this rank's share (the
+            # trainer averages the parameters' gradients).
+            c = sum_g.shape[0]
+            packed = torch.cat([sum_g, sum_gx])
+            dist.all_reduce(packed, group=ctx.group)
+            tot_g = packed[:c]
+            tot_gxhat = rstd * (packed[c:] - mean * tot_g)
         a = scale * rstd
-        d_var = -0.5 * scale * rstd * rstd * sum_gxhat
-        d_mean = -a * sum_g - 2.0 * mean * d_var
+        d_var = -0.5 * scale * rstd * rstd * tot_gxhat
+        d_mean = -a * tot_g - 2.0 * mean * d_var
         # mean = sum(m x) / cnt and E[x^2] = sum(m x^2) / cnt
         per = (d_mean.reshape(shape) + 2.0 * xf * d_var.reshape(shape)) / cnt
         if mask is not None:

@@ -1,7 +1,8 @@
 """Shared CLI plumbing (port of tools/common.py; reference train.py:23
 parse_config pattern): --cfg_file + --set dotted overrides + experiment dir
-derivation, the functions that make the detection dataset and model, and
-the per-sequence points loader of the offboard CLIs."""
+derivation, the device and process group of a rank, the functions that
+make the detection dataset and model, and the per-sequence points loader
+of the offboard CLIs."""
 
 from __future__ import annotations
 
@@ -40,12 +41,23 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 
 
 def resolve_device(name: str) -> torch.device:
-    """The device named on the command line; a card must be there."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: torch finds no CUDA device; "
-                           f"pass --device cpu to run on the CPU")
-    return device
+    """The device named on the command line, where a bare "cuda" is this
+    rank's card (cuda:LOCAL_RANK under torchrun or SLURM); a card must be
+    there."""
+    from detzero_tpu_torch.core.mesh import rank_device
+
+    return rank_device(name)
+
+
+def init_data_parallel(name: str):
+    """The device of `--device name` and the process group of a torchrun
+    or SLURM launch (NCCL on a card, gloo on the CPU; none for one
+    process, nor where the caller made its own): (device, rank, world)."""
+    from detzero_tpu_torch.core.mesh import init_distributed
+
+    device = resolve_device(name)
+    rank, world = init_distributed(device=device)
+    return device, rank, world
 
 
 def load_config(args) -> Config:
@@ -63,8 +75,13 @@ def load_config(args) -> Config:
 def setup_experiment(args, cfg, phase: str):
     """Experiment dir <output>/<cfg-stem>/<extra_tag>/ with cfg copy + logger
     (reference train.py:87,105-106)."""
+    from detzero_tpu_torch.core.mesh import get_dist_info
+
     exp_dir = Path(args.output_dir) / Path(args.cfg_file).stem / args.extra_tag
     exp_dir.mkdir(parents=True, exist_ok=True)
+    if get_dist_info()[0] != 0:
+        # rank 0 alone writes the experiment's files
+        return exp_dir, create_logger()
     try:
         shutil.copy(args.cfg_file, exp_dir / Path(args.cfg_file).name)
     except shutil.SameFileError:

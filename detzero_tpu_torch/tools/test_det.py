@@ -15,6 +15,14 @@ Restores the newest checkpoint of `--ckpt` (by default the experiment's
 `run_inference` over the test split and scores the detections with the
 dataset's `evaluation`.  `main(argv)` runs in-process and returns what it
 computed (`--eval_all`: one such dict a checkpoint).
+
+`--data_parallel` under torchrun or SLURM shards each global batch
+(BATCH_SIZE_PER_DEVICE x the ranks, the tail padded) over the ranks, one
+card each, and gathers the detections to rank 0 in the dataset's order;
+rank 0 alone writes result.pkl and evaluates, the others return None.
+Under TTA, with one rank, or without the flag, rank 0 runs the
+single-process evaluation alone (the reference shards only when it has
+more than one device and no TTA, tools/test_det.py:51).
 """
 
 from __future__ import annotations
@@ -105,12 +113,28 @@ def run_inference(model, dataset, loader, cfg, max_batches=None,
     return det_annos
 
 
+def gather_frames(det_annos, world, batch_size, n_frames):
+    """Every rank's `run_inference` output (a dict a sample, batch_size
+    a batch, as many full batches on every rank: the loader pads the tail
+    global batch) in the dataset's order: global batch by global batch,
+    each rank's slice in rank order, cut at `n_frames`, which drops the
+    padding at the end."""
+    from detzero_tpu_torch.parallel.trainer import eval_gather
+
+    gathered = eval_gather(det_annos)
+    per_rank = len(gathered) // world
+    return [gathered[r * per_rank + i]
+            for g in range(0, per_rank, batch_size) for r in range(world)
+            for i in range(g, g + batch_size)][:n_frames]
+
+
 def main(argv=None):
     from detzero_tpu_torch.core.checkpoint import CheckpointManager
     from detzero_tpu_torch.data.waymo_dataset import build_dataloader
+    from detzero_tpu_torch.core.mesh import broadcast_object
     from detzero_tpu_torch.tools.common import (
-        base_parser, build_detection_dataset, build_detector, load_config,
-        resolve_device, setup_experiment,
+        base_parser, build_detection_dataset, build_detector,
+        init_data_parallel, load_config, setup_experiment,
     )
 
     parser = base_parser("detzero_tpu_torch detection eval")
@@ -127,23 +151,31 @@ def main(argv=None):
                         choices=["envelope", "waymo101"],
                         help="waymo101 = exact 101-score-cutoff protocol")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="shard eval batches over the local cards "
-                             "(not ported)")
+                        help="shard eval batches over the ranks of a "
+                             "torchrun or SLURM launch, one card each "
+                             "(reference DistributedSampler eval, "
+                             "datasets/__init__.py:16-36); global batch = "
+                             "BATCH_SIZE_PER_DEVICE * ranks")
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported: the port runs on one card; "
-            "data parallelism is ROADMAP queue 1's DDP item")
-    device = resolve_device(args.device)
+    device, rank, world = init_data_parallel(args.device)
     cfg = load_config(args)
+    dp = args.data_parallel and world > 1 and not cfg.get("TTA", False)
+    if world > 1 and not dp and rank != 0:
+        return None             # rank 0 runs the single-process evaluation
+    if not dp:
+        world = 1
     exp_dir, logger = setup_experiment(args, cfg, "test")
 
     dataset = build_detection_dataset(cfg, training=False, logger=logger)
     model = build_detector(cfg, device)
     batch_size = 1 if cfg.get("TTA", False) else \
         int(cfg.get("OPTIMIZATION", {}).get("BATCH_SIZE_PER_DEVICE", 1))
+    if dp:
+        logger.info(f"data-parallel eval over {world} ranks, global batch "
+                    f"{batch_size * world}")
     loader = build_dataloader(dataset, batch_size, shuffle=False,
-                              num_workers=args.workers, drop_last=False)
+                              num_workers=args.workers, drop_last=False,
+                              rank=rank if dp else 0, world=world)
     mgr = CheckpointManager(args.ckpt or (exp_dir / "ckpt"))
 
     def eval_one(step, tag=""):
@@ -151,6 +183,15 @@ def main(argv=None):
         det_annos = run_inference(model, dataset, loader, cfg,
                                   max_batches=args.max_batches,
                                   timings=timings)
+        if dp:
+            n_frames = len(dataset)
+            if args.max_batches is not None:
+                n_frames = min(n_frames,
+                               args.max_batches * batch_size * world)
+            det_annos = gather_frames(det_annos, world, batch_size,
+                                      n_frames)
+            if rank != 0:
+                return None
         out = None
         if args.save_to_file:
             out = exp_dir / f"result{tag}.pkl"
@@ -172,7 +213,9 @@ def main(argv=None):
         evaluated = []
         waited = 0.0
         while waited < args.max_waiting_mins * 60:
-            step = mgr.latest_step()
+            # rank 0's look at the directory decides for every rank
+            step = broadcast_object(mgr.latest_step() if rank == 0
+                                    else None) if dp else mgr.latest_step()
             if step is None or str(step) in done:
                 time.sleep(POLL_S)
                 waited += POLL_S
@@ -181,7 +224,8 @@ def main(argv=None):
             logger.info(f"evaluating checkpoint step {step}")
             evaluated.append(eval_one(step, tag=f"_{step}"))
             done.add(str(step))
-            done_file.write_text("\n".join(sorted(done)))
+            if rank == 0:
+                done_file.write_text("\n".join(sorted(done)))
             waited = 0.0
         logger.info("eval watcher timed out")
         return evaluated

@@ -13,7 +13,9 @@ DATA_PATH/<CLASS_NAME>/, the model from REFINE_MODULES (float32, weights
 drawn from --seed), the optimizer and the trainer, resumes from the newest
 checkpoint of <output_dir>/<cfg stem>/<extra_tag>/ckpt and trains to the
 step count.  `main(argv)` runs in-process and returns the Trainer (None
-when there are no records, as the reference logs and returns).
+when there are no records, as the reference logs and returns).  Under
+torchrun or SLURM it trains data parallel as train_det does: the global
+batch is BATCH_SIZE_PER_DEVICE x the ranks, one card a rank.
 """
 
 from __future__ import annotations
@@ -81,8 +83,9 @@ def main(argv=None):
     from detzero_tpu_torch.data.waymo_dataset import build_dataloader
     from detzero_tpu_torch.parallel.trainer import Trainer
     from detzero_tpu_torch.tools.common import (
-        base_parser, load_config, resolve_device, setup_experiment,
+        base_parser, init_data_parallel, load_config, setup_experiment,
     )
+    from detzero_tpu_torch.core.mesh import rank_rng
 
     parser = base_parser("detzero_tpu_torch refining training")
     parser.add_argument("--max_steps", type=int, default=None,
@@ -93,29 +96,33 @@ def main(argv=None):
     parser.add_argument("--log_every", type=int, default=10,
                         help="steps between metrics.jsonl lines")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    device, rank, world = init_data_parallel(args.device)
     cfg = load_config(args)
     exp_dir, logger = setup_experiment(args, cfg, "train")
 
     set_random_seed(args.seed)
+    # the samples' draws: RandomState(seed) on rank 0, (seed, rank) else
     dataset = build_refine_dataset(cfg, training=True, logger=logger,
-                                   rng=np.random.RandomState(args.seed))
+                                   rng=rank_rng(args.seed, rank))
     if len(dataset) == 0:
         logger.error("no refining records found — run the daemon first "
                      "(detzero_tpu_torch.tools.prepare_object_data)")
         return None
     opt_cfg = cfg["OPTIMIZATION"]
     batch_size = int(opt_cfg.get("BATCH_SIZE_PER_DEVICE", 8))
-    if len(dataset) < batch_size:
+    global_batch = batch_size * world
+    if len(dataset) < global_batch:
         # the loader drops the last partial batch: an epoch would be empty
         raise ValueError(f"{len(dataset)} training tracks cannot fill one "
-                         f"batch of {batch_size}")
-    total_steps = args.max_steps or max(len(dataset) // batch_size, 1) * \
-        int(opt_cfg.get("NUM_EPOCHS", 60))
-    logger.info(f"device={device} batch={batch_size} steps={total_steps}")
+                         f"batch of {global_batch}")
+    total_steps = args.max_steps or max(len(dataset) // global_batch, 1) \
+        * int(opt_cfg.get("NUM_EPOCHS", 60))
+    logger.info(f"device={device} ranks={world} batch={global_batch} "
+                f"steps={total_steps}")
     model = build_refine_model(cfg, device, seed=args.seed)
     loader = build_dataloader(dataset, batch_size, shuffle=True,
-                              num_workers=args.workers, seed=args.seed)
+                              num_workers=args.workers, seed=args.seed,
+                              rank=rank, world=world)
     trainer = Trainer(model, build_optimizer(opt_cfg, total_steps, model),
                       ckpt_dir=exp_dir / "ckpt", logger=logger,
                       log_every=args.log_every, seed=args.seed)

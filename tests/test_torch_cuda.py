@@ -1015,3 +1015,29 @@ def test_offboard_pipeline_card_vs_cpu(dev):
             assert np.isfinite(b[k]).all()
             assert np.abs(a[k] - b[k]).max(initial=0) <= \
                 1e-4 * max(np.abs(a[k]).max(initial=0), 1.0), k
+
+
+def test_data_parallel_tiny_two_ranks(dev, tmp_path):
+    """chip_smoke.py phase 16's tiny check: one Trainer step of the tiny
+    float32 CenterPoint of tests/torch_dist_cases.py on 2 spawned gloo
+    ranks x 1 sample, both on the card, against one process x 2 samples
+    on the card: the mean of the ranks' losses within 1e-5 relative, the
+    averaged gradient under the rule of test_tiny_train_loss_card_vs_cpu
+    (float32 rounding flips ReLU regions at random init), the BN running
+    statistics within 1e-5 of their scale, and the ranks bit-equal."""
+    import torch_dist_cases as dc
+
+    ranks = [r[0] for r in dc.spawn("tiny_steps", 2, tmp_path, 1, 2,
+                                    str(dev))]
+    one = dc.tiny_steps(0, 1, None, 1, 2, str(dev))[0]
+    assert ranks[0]["mismatch"] == ranks[1]["mismatch"] == []
+    loss = sum(float(r["loss"]) for r in ranks) / 2
+    assert abs(loss - float(one["loss"])) <= 1e-5 * abs(float(one["loss"]))
+    out_share, min_share, norm_ratio = _grad_agreement(
+        {k: v.double() for k, v in one["grads"].items()}, ranks[0]["grads"])
+    assert out_share <= 1e-4 and min_share >= 0.9
+    assert abs(norm_ratio - 1.0) <= 1e-2
+    for k, b in one["buffers"].items():
+        assert (ranks[0]["buffers"][k] - b).abs().max() \
+            <= 1e-5 * max(float(b.abs().max()), 1.0), k
+        assert torch.equal(ranks[0]["buffers"][k], ranks[1]["buffers"][k])

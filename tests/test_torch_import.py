@@ -1,5 +1,5 @@
 """detzero_tpu_torch imports neither jax, flax, yaml, google.protobuf,
-google_crc32c nor detzero_tpu (predict, one training step, the two-stage
+google_crc32c nor detzero_tpu, nor at import matplotlib or open3d (predict, one training step, the two-stage
 predict and loss, one step of the training entry point from its config
 and loader, the inference entry point on its checkpoint, the tracker on
 its output, the refining stage (the daemon's records of those tracks, one
@@ -93,6 +93,10 @@ MAIN_PATH = [
     "detzero_tpu_torch.tools.combine_output",
     "detzero_tpu_torch.tools.detzero_eval",
     "detzero_tpu_torch.tools.run_offboard",
+    "detzero_tpu_torch.core.mesh", "detzero_tpu_torch.utils.common",
+    "detzero_tpu_torch.utils.kitti_convert",
+    "detzero_tpu_torch.utils.visualize", "detzero_tpu_torch.ops.kde",
+    "detzero_tpu_torch.tools.eval_oracle",
 ]
 
 SCRIPT = """
@@ -102,6 +106,9 @@ sys.modules["flax"] = None
 sys.modules["yaml"] = None
 sys.modules["google.protobuf"] = None
 sys.modules["google_crc32c"] = None
+# the drawing libraries are imported by the functions that draw only
+sys.modules["matplotlib"] = None
+sys.modules["open3d"] = None
 # TensorBoard's writer would load TensorFlow (12 s); the trainer runs
 # without it, as on the card's machine
 sys.modules["torch.utils.tensorboard"] = None
@@ -254,7 +261,8 @@ with tempfile.TemporaryDirectory() as tmp:
                 sorted(off["timings"]), len(objs.objects)]
 bad = sorted(k for k in sys.modules
              if (k.split(".")[0] in ("jax", "flax", "jaxlib", "detzero_tpu",
-                                     "yaml", "google_crc32c")
+                                     "yaml", "google_crc32c", "matplotlib",
+                                     "open3d")
                  or k.startswith("google.protobuf"))
              and sys.modules[k] is not None)
 print(json.dumps({{"bad": bad, "kept": int(out["mask"].sum()),

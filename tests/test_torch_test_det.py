@@ -236,8 +236,11 @@ def test_cli_refusals(setup, tmp_path, monkeypatch):
     _, _, path, _, _ = setup
     args = ["--cfg_file", str(path), "--workers", "0", "--output_dir",
             str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="DDP"):
-        test_det.main(args + ["--device", "cpu", "--data_parallel"])
+    # --data_parallel without a process group is the single-process run
+    # (tests/test_torch_dist_tools.py runs it on 2 ranks)
+    res = test_det.main(args + ["--device", "cpu", "--data_parallel",
+                                "--max_batches", "1"])
+    assert res["timings"]["samples"] == 1 and len(res["det_annos"]) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         test_det.main(args)                     # --device cuda by default

@@ -333,5 +333,5 @@ def test_cli_refusals(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         train_det.main(args)                     # --device cuda by default
-    with pytest.raises(NotImplementedError, match="CUDA graphs"):
-        train_det.main(args + ["--device", "cpu", "--steps_per_call", "2"])
+    with pytest.raises(ValueError, match="steps_per_call"):
+        train_det.main(args + ["--device", "cpu", "--steps_per_call", "0"])
