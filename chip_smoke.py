@@ -158,7 +158,30 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      phase 13's (the same frames in order, as many boxes, the same names,
      boxes and scores within 1e-4); launches held to the one-stage step's
      a step and test_det's a sample on each rank; within 300 s.  The
-     2-rank runs' launches, summed over the ranks, are the path `DP`.
+     2-rank runs' launches, summed over the ranks, are the path `DP`;
+ 17. the synthetic quality ladder (DET -> +TRK -> +GRM/PRM -> +CRM) in a
+     temporary root of its own: `train_det.main` on configs/det_model_cfgs/
+     centerpoint_synthetic_v3.yaml (its full width: 512 x 512 x 40 grid,
+     20,000 points, 128 pillars a row, batch 1) to LADDER_DET_STEPS
+     steps, the last LADDER_PROFILED_STEPS resumed under torch.profiler
+     (ms/step after the warm-up, idle share, peak memory; launches a step
+     exact); then detzero_tpu_torch/tools/run_synthetic_ladder.sh's recipe,
+     `ladder_synthetic.run_recipe`, at its cut depth: records of 2
+     train-seed sequences (records a class; some record's iou_gt finite
+     and matched to GT), `train_refine.main` at configs/ref_model_cfgs/
+     synthetic_{grm,prm}.yaml a class at a time (a class with no records,
+     or whose tracks train_refine refuses as unable to fill one batch, is
+     not trained, and printed), the relabel (some iou_gt must change),
+     then CRM, the ladder on 2 val-seed sequences (seed 1234): the 4-row
+     table, every entry finite in [0, 1], run_det's frames/s, the
+     tracker's and refiners' seconds; launches a sample of both run_det
+     calls exact; then the trained detector's heads on 2 val frames, the
+     card against the CPU (both float32, K2 in bf16 on the card) within
+     LADDER_CPU_TOL * max(|ref|, 1), and `iou3d.boxes_giou3d` on 1000 x
+     1000 clustered boxes on the card against itself on K7's plain
+     version (1e-4), `iou3d.boxes_iou_bev` (K3) against the reference's
+     formula on K7's overlap (1e-6); within
+     LADDER_PHASE_S.  Its launches are the path `LD`.
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -3680,6 +3703,270 @@ def run_data_parallel(device, tmp, yaml_path, det_ckpt, phase13_result):
             for k in COUNTERS}
 
 
+# phase 17: the synthetic quality ladder (DET -> +TRK -> +GRM/PRM -> +CRM)
+# through detzero_tpu_torch.tools.{train_det,ladder_synthetic,train_refine}
+# at the width of configs/det_model_cfgs/centerpoint_synthetic_v3.yaml and
+# configs/ref_model_cfgs/synthetic_{grm,prm,crm}.yaml; the depth is cut to
+# LADDER_DET_STEPS detector steps, LADDER_SEQS sequences a seed and
+# LADDER_REFINE_STEPS refiner steps (the reference's recipe: 20,000 steps,
+# 24 train and 8 val sequences, 1,500 refiner steps).
+LADDER_CFG = "configs/det_model_cfgs/centerpoint_synthetic_v3.yaml"
+LADDER_DET_STEPS = 300
+LADDER_PROFILED_STEPS = 5    # the last detector steps, under torch.profiler
+LADDER_WARMUP_STEPS = 10     # detector steps left out of ms/step
+LADDER_SEQS = 2
+LADDER_TRAIN_SEED = 0
+LADDER_VAL_SEED = 1234
+LADDER_REFINE_STEPS = 4
+LADDER_CPU_FRAMES = 2
+# the trained detector's heads, card against CPU: 5e-3 * max(|ref|, 1),
+# about 5x the worst error read on the card (9e-4 * max(|ref|, 1), PERF.md)
+LADDER_CPU_TOL = 5e-3
+LADDER_GIOU_TOL = 1e-4
+LADDER_PHASE_S = 240.0
+# launches a detector step at batch 1 and a predicted sample
+LADDER_STEP = {"stream_rowpad_feats": 1, "rowpad_conv": 39,
+               "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
+               "rowpad_nbr": NBR_LAUNCHES}
+LADDER_SAMPLE = {"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
+                 "rowpad_nbr": NBR_LAUNCHES, "nms_walk": 1}
+
+
+def metrics_ms(ckpt_dir, first):
+    """ms_per_it of the metrics.jsonl lines of `ckpt_dir` from step
+    `first` on, with the steps' count."""
+    lines = [json.loads(x) for x in
+             (Path(ckpt_dir) / "metrics.jsonl").read_text().splitlines()]
+    if not all(np.isfinite(v) for x in lines for v in x.values()):
+        raise AssertionError(f"{ckpt_dir}/metrics.jsonl holds a value that "
+                             f"is not finite")
+    ms = [x["ms_per_it"] for x in lines if x["step"] >= first]
+    return sum(ms) / max(len(ms), 1), len(lines)
+
+
+def check_ladder_card_cpu(cfg, ckpt, device):
+    """The trained detector's heads on LADDER_CPU_FRAMES val frames, the
+    card (K1, K2 in bf16, K8) against the CPU (plain versions), both
+    float32 models, within LADDER_CPU_TOL * max(|ref|, 1) (phase 4's tiny
+    check allows 5e-2 on random weights)."""
+    import torch
+    from detzero_tpu_torch.core.checkpoint import CheckpointManager
+    from detzero_tpu_torch.tools import common, ladder_synthetic
+
+    models = []
+    for dev in ("cpu", device):
+        m = common.build_detector(cfg, dev, dtype=torch.float32)
+        CheckpointManager(ckpt).restore(m)
+        models.append(m)
+    ds = ladder_synthetic.build_synthetic(cfg, LADDER_VAL_SEED, 1)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i in range(LADDER_CPU_FRAMES):
+        s = ds[i]
+        p = torch.from_numpy(s["points"])
+        v = torch.from_numpy(s["points_valid"])
+        with torch.no_grad():
+            ref = models[0].forward_one(p, v)
+            got = models[1].forward_one(p.to(device), v.to(device))
+        for r, g in zip(ref, got):
+            for k in r:
+                err = max_abs(g[k].float().cpu(), r[k].float())
+                tol = LADDER_CPU_TOL * max(float(r[k].abs().max()), 1.0)
+                worst = max(worst, err / tol)
+                if not err <= tol:
+                    raise AssertionError(f"ladder detector frame {i} head "
+                                         f"{k}: card vs CPU {err} > {tol}")
+    print(f"[ladder] trained detector card vs CPU on {LADDER_CPU_FRAMES} "
+          f"val frames (seed {LADDER_VAL_SEED}): heads within "
+          f"{LADDER_CPU_TOL:g} * max(|ref|, 1), worst err/tol {worst:.3f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def check_giou(device):
+    """boxes_giou3d on 1000 x 1000 clustered 3D boxes on the card (K7 and
+    the hull) against the same function on K7's plain version, within
+    LADDER_GIOU_TOL: K7 is held to 1e-5 of the largest area (phase 8), and
+    the GIoU divides the overlap times a height by a union no smaller
+    than a tenth of that area times the height.  Then iou3d.boxes_iou_bev
+    (K3) against the reference's ov / max(a + b - ov, 1e-6) on K7's
+    overlap."""
+    from unittest import mock
+
+    import torch
+    from detzero_tpu_torch.ops import iou3d, iou_bev
+
+    bev = clustered_boxes(device)
+    g = torch.Generator().manual_seed(5)
+    zh = torch.rand((bev.shape[0], 2), generator=g).to(device)
+    boxes = torch.stack([bev[:, 0], bev[:, 1], zh[:, 0] - 0.5, bev[:, 2],
+                         bev[:, 3], zh[:, 1] * 1.5 + 0.5, bev[:, 4]], 1)
+    got = iou3d.boxes_giou3d(boxes, boxes)
+    with mock.patch.object(iou3d, "boxes_overlap_bev",
+                           iou_bev.boxes_overlap_bev_plain):
+        ref = iou3d.boxes_giou3d(boxes, boxes)
+    torch.cuda.synchronize()
+    err = max_abs(got, ref)
+    ms = time_ms(lambda: iou3d.boxes_giou3d(boxes, boxes), iters=3)
+    finite = bool(torch.isfinite(got).all())
+    print(f"[ladder] boxes_giou3d {tuple(got.shape)} on the card: "
+          f"max_abs_err {err:.3g} (tol {LADDER_GIOU_TOL:g}) against K7's "
+          f"plain version, range [{float(got.min()):.4f}, "
+          f"{float(got.max()):.4f}], {ms:.3f} ms")
+    # the reference's union height (min(amax, bmax) - min(amin, bmin))
+    # lets a GIoU pass 1, so only finiteness bounds it
+    if not (err <= LADDER_GIOU_TOL and finite):
+        raise AssertionError("boxes_giou3d on the card disagrees with its "
+                             "plain version or is not finite")
+    ov = iou_bev.boxes_overlap_bev(bev, bev)
+    area = bev[:, 2] * bev[:, 3]
+    want = ov / torch.clamp(area[:, None] + area[None, :] - ov, min=1e-6)
+    err = max_abs(iou3d.boxes_iou_bev(bev, bev), want)
+    print(f"[ladder] iou3d.boxes_iou_bev (K3) against ov / max(a + b - ov, "
+          f"1e-6) on K7's overlap: max_abs_err {err:.3g} (tol 1e-06)")
+    if not err <= 1e-6:
+        raise AssertionError("iou3d.boxes_iou_bev disagrees with the "
+                             "reference's formula")
+
+
+def run_ladder_phase(device, tmp):
+    """Phase 17 in the directory `tmp`: train_det on the v3 synthetic yaml,
+    then run_synthetic_ladder.sh's recipe (`ladder_synthetic.run_recipe`)
+    at the cut depth: the refining records of LADDER_SEQS train-seed
+    sequences, the nine refiner trainings with CRM's relabel between PRM
+    and CRM, the 4-row ladder on LADDER_SEQS val-seed sequences; then the
+    trained detector
+    card against CPU and boxes_giou3d.  Returns {kernel name: launches}
+    of the path (train_det, both run_det calls and everything between)."""
+    import torch
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.parallel.trainer import Trainer
+    from detzero_tpu_torch.tools import ladder_synthetic, train_det
+
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    tmp = Path(tmp)
+    out = tmp / "output"
+    ckpt = out / Path(LADDER_CFG).stem / "default" / "ckpt"
+    cwd = os.getcwd()
+    os.chdir(REPO)        # the yamls' _BASE_CONFIG_ paths are relative
+    try:
+        cfg = cfg_from_yaml_file(LADDER_CFG, Config())
+        reset_counts()
+        # 1. the detector
+        torch.cuda.reset_peak_memory_stats(device)
+        args = ["--cfg_file", LADDER_CFG, "--device", str(device),
+                "--output_dir", str(out), "--log_every", "1"]
+        t0 = time.perf_counter()
+        train_det.main(args + ["--max_steps", str(LADDER_DET_STEPS
+                                                  - LADDER_PROFILED_STEPS)])
+        with profiled_calls(Trainer, "fit", {}) as prof:
+            train_det.main(args + ["--max_steps", str(LADDER_DET_STEPS)])
+        det_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        ms, n_lines = metrics_ms(ckpt, LADDER_WARMUP_STEPS + 1)
+        if n_lines != LADDER_DET_STEPS:
+            raise AssertionError(f"train_det logged {n_lines} steps, not "
+                                 f"{LADDER_DET_STEPS}")
+        det_counts = read_counts()
+        want = {k: LADDER_DET_STEPS * LADDER_STEP.get(k, 0)
+                for k in COUNTERS}
+        if det_counts != want:
+            raise AssertionError(f"ladder train_det launches {det_counts}, "
+                                 f"expected {want}")
+        idle = 1.0 - prof["busy_ms"] / prof["wall_ms"]
+        print(f"[ladder] {smi}: train_det {LADDER_CFG} to step "
+              f"{LADDER_DET_STEPS} in {det_s:.1f} s: {ms:.1f} ms/step over "
+              f"steps {LADDER_WARMUP_STEPS + 1}-{LADDER_DET_STEPS}, idle "
+              f"share {idle:.3f} over the last {LADDER_PROFILED_STEPS} "
+              f"(resumed, under torch.profiler), peak memory {peak:.2f} "
+              f"GiB; launches {({k: v for k, v in det_counts.items() if v})}")
+
+        # 2. to 4. run_synthetic_ladder.sh's recipe at the cut depth:
+        # records of the train-seed sequences, GRM and PRM, CRM's relabel,
+        # CRM, the ladder on the val-seed sequences
+        t0 = time.perf_counter()
+        rec = ladder_synthetic.run_recipe(
+            ckpt, LADDER_CFG, tmp / "ladder", device=str(device),
+            train_seq=LADDER_SEQS, val_seq=LADDER_SEQS,
+            refine_steps=LADDER_REFINE_STEPS, train_seed=LADDER_TRAIN_SEED,
+            val_seed=LADDER_VAL_SEED, out_md="", refine_log_every=1)
+        counts = read_counts()
+        secs = rec["seconds"]
+        labels = ladder_synthetic.iou_gt_of(tmp / "ladder" / "refine_data")
+        good = [v for recs in labels.values() for v in recs.values()
+                if np.isfinite(v).all() and (v >= 0).any()]
+        print(f"[ladder] recipe in {time.perf_counter() - t0:.1f} s: "
+              f"refine records of {LADDER_SEQS} train sequences (seed "
+              f"{LADDER_TRAIN_SEED}) in {secs['records']:.1f} s: "
+              f"{rec['records']['n_records']}; {len(good)} with a finite "
+              f"iou_gt matched to GT")
+        if not good:
+            raise AssertionError("no refining record has a finite iou_gt "
+                                 "matched to GT")
+        for kind, trained in rec["refiners"].items():
+            for cls, r in trained.items():
+                if "skipped" in r:
+                    print(f"[ladder] {kind} {cls}: {r['skipped']}: not "
+                          f"trained")
+                    continue
+                ms, n_lines = metrics_ms(r["ckpt"], 2)
+                print(f"[ladder] {smi}: {kind} {cls}: {n_lines} steps, "
+                      f"{ms:.1f} ms/step over steps 2-{LADDER_REFINE_STEPS}")
+        trained = {k: [c for c, r in v.items() if "spec" in r]
+                   for k, v in rec["refiners"].items()}
+        print(f"[ladder] CRM relabel with GRM/PRM of "
+              f"{ {k: trained[k] for k in ('grm', 'prm')} }: iou_gt of "
+              f"{rec['relabel_changed']} records changed; refiners "
+              f"trained in " + ", ".join(f"{k} {secs[k]:.1f} s"
+                                         for k in ("grm", "prm", "crm")))
+        if (trained["grm"] or trained["prm"]) and not rec["relabel_changed"]:
+            raise AssertionError("the CRM relabel changed no iou_gt")
+        res = rec["ladder"]
+        t = res["timings"]
+        n_frames = len(res["det_annos"]) + len(rec["records"]["det_annos"])
+        want = {k: want[k] + n_frames * LADDER_SAMPLE.get(k, 0)
+                for k in COUNTERS}
+        if counts != want:
+            raise AssertionError(f"ladder launches {counts}, expected "
+                                 f"{want}")
+        print(f"[ladder] ladder on {LADDER_SEQS} val sequences (seed "
+              f"{LADDER_VAL_SEED}), detector step {LADDER_DET_STEPS}, in "
+              f"{secs['ladder']:.1f} s:\n{res['table']}")
+        print(f"[ladder] DET mean AP_L2 waymo101 "
+              f"{res['waymo101']['mean']['AP_L2']:.4f}")
+        for name, r in res["rows"]:
+            vals = [r["mean"]["AP_L2"], r["mean"]["APH_L2"]] + [
+                r[c]["AP_L2"] for c in ladder_synthetic.CLASSES]
+            if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals):
+                raise AssertionError(f"ladder row {name}: {vals} not all "
+                                     f"finite in [0, 1]")
+        if [name for name, _ in res["rows"]][:2] != ["DET", "+TRK"]:
+            raise AssertionError("the ladder lacks its DET and +TRK rows")
+        print(f"[ladder] {smi}: run_det {t['frames']} frames in "
+              f"{t['load_s'] + t['predict_s']:.2f} s, "
+              f"{t['frames'] / (t['load_s'] + t['predict_s']):.2f} frames/s"
+              f" (predict {1e3 * t['predict_s'] / t['frames']:.1f} ms a "
+              f"frame); stages: " + "; ".join(
+                  f"{label} {v['wall_s']:.2f} s (track "
+                  f"{v['stages']['track']['total_s']:.2f}, refine "
+                  f"{v['stages']['refine']['total_s']:.2f})"
+                  for label, v in t.items() if isinstance(v, dict)))
+        print(f"[ladder] launches LD (train_det + run_det of {n_frames} "
+              f"frames): {({k: v for k, v in counts.items() if v})}")
+
+        # 5. and 6. the trained detector card against CPU; GIoU and K3
+        check_ladder_card_cpu(cfg, ckpt, device)
+        check_giou(device)
+    finally:
+        os.chdir(cwd)
+    took = time.perf_counter() - t_phase
+    print(f"[ladder] phase 17 took {took:.1f} s (limit {LADDER_PHASE_S:.0f})")
+    if took > LADDER_PHASE_S:
+        raise AssertionError(f"phase 17 took {took:.1f} s, over "
+                             f"{LADDER_PHASE_S:.0f}")
+    return counts
+
+
 def main():
     import torch
 
@@ -3800,6 +4087,11 @@ def main():
         by_path["DP"] = run_data_parallel(device, dp_tmp, yaml_path,
                                           det_exp / "ckpt",
                                           det_exp / "result.pkl")
+    torch.cuda.empty_cache()
+
+    # 17. the synthetic quality ladder, in a temporary root of its own
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as tmp:
+        by_path["LD"] = run_ladder_phase(device, tmp)
     torch.cuda.empty_cache()
 
     # result lines

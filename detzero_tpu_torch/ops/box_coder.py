@@ -1,6 +1,9 @@
-"""Anchor-residual box coder (port of `detzero_tpu/ops/box_coder.py`'s
-ResidualCoder): center offsets over the anchor diagonal, log size ratios,
-heading residual (optionally split into sin/cos)."""
+"""Box residual coders (port of `detzero_tpu/ops/box_coder.py`):
+ResidualCoder, anchor-relative (center offsets over the anchor diagonal,
+log size ratios, heading residual, optionally split into sin/cos); the
+decode-only PreviousResidualDecoder; and PointResidualCoder, boxes against
+bare points with the class-mean sizes as the size prior.  Log sizes are
+clipped at +-4 on decode."""
 
 from __future__ import annotations
 
@@ -56,3 +59,51 @@ class ResidualCoder:
         cols += [deltas[..., i] + anchors[..., 7 + i - rest]
                  for i in range(rest, deltas.shape[-1])]
         return torch.stack(cols, -1)
+
+
+class PreviousResidualDecoder:
+    """Decode-only legacy coder: ResidualCoder's decode, kept for
+    detections of older pipelines."""
+
+    code_size = 7
+
+    @staticmethod
+    def decode(deltas, anchors):
+        return ResidualCoder().decode(deltas, anchors)
+
+
+class PointResidualCoder:
+    """Boxes encoded against points, the class-mean sizes (num_cls, 3) the
+    size prior (ones without classes or with use_mean_size off); codes are
+    [xt, yt, zt, dxt, dyt, dzt, sin, cos]."""
+
+    def __init__(self, mean_sizes, use_mean_size: bool = True):
+        self.mean_sizes = torch.as_tensor(mean_sizes)
+        self.use_mean_size = use_mean_size
+        self.code_size = 8
+
+    def _prior(self, like, classes):
+        if self.use_mean_size and classes is not None:
+            return self.mean_sizes.to(like.device)[classes]
+        return torch.ones((*like.shape[:-1], 3), dtype=like.dtype,
+                          device=like.device)
+
+    def encode(self, boxes, points, classes=None):
+        prior = self._prior(boxes, classes)
+        diag = torch.sqrt(prior[..., 0] ** 2 + prior[..., 1] ** 2)
+        return torch.cat([
+            ((boxes[..., 0] - points[..., 0]) / diag)[..., None],
+            ((boxes[..., 1] - points[..., 1]) / diag)[..., None],
+            ((boxes[..., 2] - points[..., 2]) / prior[..., 2])[..., None],
+            torch.log(torch.clamp(boxes[..., 3:6], min=1e-5) / prior),
+            torch.sin(boxes[..., 6:7]), torch.cos(boxes[..., 6:7])], -1)
+
+    def decode(self, deltas, points, classes=None):
+        prior = self._prior(deltas, classes)
+        diag = torch.sqrt(prior[..., 0] ** 2 + prior[..., 1] ** 2)
+        return torch.cat([
+            (deltas[..., 0] * diag + points[..., 0])[..., None],
+            (deltas[..., 1] * diag + points[..., 1])[..., None],
+            (deltas[..., 2] * prior[..., 2] + points[..., 2])[..., None],
+            torch.exp(torch.clamp(deltas[..., 3:6], -4, 4)) * prior,
+            torch.atan2(deltas[..., 6], deltas[..., 7])[..., None]], -1)

@@ -1,6 +1,6 @@
-"""The losses of the center head and the PDV RoI head (port of
-`focal_loss_centernet`, `reg_loss_centernet`, `weighted_smooth_l1` and
-`corner_loss_lidar` of `detzero_tpu/ops/losses.py`).  The center head's
+"""The detection losses (port of `detzero_tpu/ops/losses.py`): those of
+the center head and the PDV RoI head, `gather_feat` and the anchor/RoI
+heads' `sigmoid_focal_cls_loss`.  The center head's
 two reduce over their trailing axes, so a leading batch axis gives one loss
 per sample, as the reference's vmap does.  The heads' outputs are float32
 (the reference casts them), so the losses compute in float32."""
@@ -30,6 +30,13 @@ def focal_loss_centernet(pred_hm, gt_hm, eps: float = 1e-4):
                        -neg_loss.sum(dims))
 
 
+def gather_feat(feat_hw_c, inds):
+    """feat (H*W, C), inds (M,) -> (M, C): rows of a flattened map (the
+    reference's layout; `gather_cells` takes the unflattened, batched
+    one)."""
+    return feat_hw_c[inds.long()]
+
+
 def gather_cells(feat, inds):
     """feat ([N,] H, W, C), inds ([N,] M) flat cell indices -> ([N,] M, C)."""
     h, w, c = feat.shape[-3:]
@@ -51,10 +58,16 @@ def reg_loss_centernet(pred_map, inds, target, mask, code_weights=None):
     return diff.sum((-2, -1)) / num
 
 
-def weighted_smooth_l1(pred, target, beta: float = 1.0 / 9.0):
-    """Elementwise smooth-L1 (reference WeightedSmoothL1Loss, unweighted)."""
+def weighted_smooth_l1(pred, target, weights=None, beta: float = 1.0 / 9.0):
+    """Elementwise smooth-L1 (reference WeightedSmoothL1Loss), times
+    `weights` where given: of the loss's shape, or of its leading axes
+    (broadcast over the last)."""
     n = torch.abs(pred - target)
-    return torch.where(n < beta, 0.5 * n * n / beta, n - 0.5 * beta)
+    loss = torch.where(n < beta, 0.5 * n * n / beta, n - 0.5 * beta)
+    if weights is None:
+        return loss
+    return loss * (weights[..., None] if loss.ndim == weights.ndim + 1
+                   else weights)
 
 
 def corner_loss_lidar(pred_boxes, gt_boxes, mask=None):
@@ -72,3 +85,16 @@ def corner_loss_lidar(pred_boxes, gt_boxes, mask=None):
         return loss.mean()
     m = mask.to(loss.dtype)
     return (loss * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def sigmoid_focal_cls_loss(pred_logits, target, weights, gamma: float = 2.0,
+                           alpha: float = 0.25):
+    """Elementwise sigmoid focal loss of the anchor/RoI heads, times
+    `weights` (of the loss's shape, or of its leading axes)."""
+    p = torch.clamp(1.0 / (1.0 + torch.exp(-pred_logits)), 1e-6, 1 - 1e-6)
+    alpha_w = target * alpha + (1 - target) * (1 - alpha)
+    pt = target * (1.0 - p) + (1.0 - target) * p
+    bce = -(target * torch.log(p) + (1 - target) * torch.log(1 - p))
+    loss = alpha_w * torch.pow(pt, gamma) * bce
+    return loss * (weights[..., None] if loss.ndim == weights.ndim + 1
+                   else weights)

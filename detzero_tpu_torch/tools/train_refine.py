@@ -13,7 +13,8 @@ DATA_PATH/<CLASS_NAME>/, the model from REFINE_MODULES (float32, weights
 drawn from --seed), the optimizer and the trainer, resumes from the newest
 checkpoint of <output_dir>/<cfg stem>/<extra_tag>/ckpt and trains to the
 step count.  `main(argv)` runs in-process and returns the Trainer (None
-when there are no records, as the reference logs and returns).  Under
+when there are no records, as the reference logs and returns; it raises
+`TooFewTracks` when the tracks cannot fill one batch).  Under
 torchrun or SLURM it trains data parallel as train_det does: the global
 batch is BATCH_SIZE_PER_DEVICE x the ranks, one card a rank.
 """
@@ -25,6 +26,11 @@ import torch
 
 MODEL_KIND = {"GeometryTransformer": "grm", "PositionTransformer": "prm",
               "ConfidencePointNet": "crm"}
+
+
+class TooFewTracks(ValueError):
+    """The class's training tracks cannot fill one global batch: the
+    loader drops the last partial batch, so an epoch would be empty."""
 
 
 def build_refine_dataset(cfg, training, logger=None, records=None, rng=None):
@@ -112,9 +118,8 @@ def main(argv=None):
     batch_size = int(opt_cfg.get("BATCH_SIZE_PER_DEVICE", 8))
     global_batch = batch_size * world
     if len(dataset) < global_batch:
-        # the loader drops the last partial batch: an epoch would be empty
-        raise ValueError(f"{len(dataset)} training tracks cannot fill one "
-                         f"batch of {global_batch}")
+        raise TooFewTracks(f"{len(dataset)} training tracks cannot fill "
+                           f"one batch of {global_batch}")
     total_steps = args.max_steps or max(len(dataset) // global_batch, 1) \
         * int(opt_cfg.get("NUM_EPOCHS", 60))
     logger.info(f"device={device} ranks={world} batch={global_batch} "

@@ -1,7 +1,8 @@
 """Each CUDA kernel of detzero_tpu_torch against its plain PyTorch version on
 the card, at small shapes, plus the tiny model (predict and one training
 loss with its gradients, one-stage and two-stage, and one loss with the
-sliding conv K9) on the card against the CPU.
+sliding conv K9), the offboard pipeline and the ladder's run_det on the
+card against the CPU, and the GIoU on K7 against its plain version.
 Marked `cuda`: skipped where torch finds no CUDA device.  On a machine with
 a card:  python -m pytest tests/test_torch_cuda.py -q
 chip_smoke.py makes the same checks at the flagship path's shapes."""
@@ -1041,3 +1042,95 @@ def test_data_parallel_tiny_two_ranks(dev, tmp_path):
         assert (ranks[0]["buffers"][k] - b).abs().max() \
             <= 1e-5 * max(float(b.abs().max()), 1.0), k
         assert torch.equal(ranks[0]["buffers"][k], ranks[1]["buffers"][k])
+
+
+def test_giou3d_card_vs_plain(dev):
+    """iou3d.boxes_giou3d on 300 clustered 3D boxes on the card (one K7
+    launch, the hull in torch) against the same function on K7's plain
+    version on the card, within 1e-4 (K7's 1e-5 of the largest area over
+    unions no smaller than a tenth of it), and against the CPU within
+    1e-4; iou3d.boxes_iou_bev (K3) equal to ov / max(a + b - ov, 1e-6) on
+    K7's overlap within 1e-6."""
+    from unittest import mock
+
+    from detzero_tpu_torch.ops import iou3d, iou_bev
+
+    bev = _clustered_boxes(60, 5, 3)
+    g = torch.Generator().manual_seed(4)
+    zh = torch.rand((bev.shape[0], 2), generator=g)
+    boxes = torch.stack([bev[:, 0], bev[:, 1], zh[:, 0] - 0.5, bev[:, 2],
+                         bev[:, 3], zh[:, 1] * 1.5 + 0.5, bev[:, 4]], 1)
+    b = boxes.to(dev)
+    before = iou_bev.OVERLAP_LAUNCHES
+    got = iou3d.boxes_giou3d(b, b)
+    assert iou_bev.OVERLAP_LAUNCHES == before + 1
+    with mock.patch.object(iou3d, "boxes_overlap_bev",
+                           iou_bev.boxes_overlap_bev_plain):
+        plain = iou3d.boxes_giou3d(b, b)
+    cpu = iou3d.boxes_giou3d(boxes, boxes)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - plain).abs().max()) <= 1e-4
+    assert float((got.cpu() - cpu).abs().max()) <= 1e-4
+    ov = iou_bev.boxes_overlap_bev(bev.to(dev), bev.to(dev))
+    area = (bev[:, 2] * bev[:, 3]).to(dev)
+    want = ov / torch.clamp(area[:, None] + area[None, :] - ov, min=1e-6)
+    assert float((iou3d.boxes_iou_bev(bev.to(dev), bev.to(dev))
+                  - want).abs().max()) <= 1e-6
+
+
+def test_ladder_run_det_card_vs_cpu(dev, tmp_path):
+    """The ladder's run_det on 2 synthetic val frames at a tiny geometry
+    (a yaml on centerpoint_synthetic_cpu.yaml: a 64 x 64 x 8 grid, 1,024
+    points), one float32 checkpoint run on the card (K1, K2 in bf16, K8,
+    K10 a frame) and on the CPU: the same frames, finite boxes, at most
+    128 a frame; the first frame's heads within 5e-2 * max(|ref|, 1), the
+    bf16 bound of chip_smoke.py's tiny check."""
+    from detzero_tpu_torch.core.checkpoint import CheckpointManager
+    from detzero_tpu_torch.core.config import Config, cfg_from_yaml_file
+    from detzero_tpu_torch.core.logger import create_logger
+    from detzero_tpu_torch.ops import nms
+    from detzero_tpu_torch.tools import common, ladder_synthetic
+
+    repo = Path(__file__).resolve().parent.parent
+    path = tmp_path / "ladder_tiny.yaml"
+    path.write_text(
+        f"_BASE_CONFIG_: {repo}/configs/det_model_cfgs/"
+        "centerpoint_synthetic_cpu.yaml\n"
+        "POINT_CLOUD_RANGE: [-6.4, -6.4, -1.6, 6.4, 6.4, 1.6]\n"
+        "NUM_POINT_BUDGET: 1024\nSYNTHETIC_POINTS: 1024\nMODEL:\n"
+        "  MAX_VOXELS: 1024\n  BEV_LAYER_NUMS: [1, 1]\n"
+        "  VOXEL_CAPACITIES: [1024, 512, 256, 128]\n")
+    import os
+    cwd = os.getcwd()
+    os.chdir(repo)        # the base yaml's own _BASE_CONFIG_ is relative
+    try:
+        cfg = cfg_from_yaml_file(str(path), Config())
+    finally:
+        os.chdir(cwd)
+    model = common.build_detector(cfg, "cpu", dtype=torch.float32, seed=3)
+    CheckpointManager(tmp_path / "ckpt").save(3, {"model":
+                                                  model.state_dict()})
+    ds = ladder_synthetic.build_synthetic(cfg, 1234, 1)
+    ds.length = 2
+    before = nms.LAUNCHES
+    outs = [ladder_synthetic.run_det(cfg, tmp_path / "ckpt", ds,
+                                     create_logger(), batch_size=2,
+                                     device=d)
+            for d in ("cpu", dev)]
+    assert nms.LAUNCHES == before + 2
+    for a, b in zip(*outs):
+        assert (a["frame_id"], a["sequence_name"]) == \
+            (b["frame_id"], b["sequence_name"])
+        assert np.isfinite(b["boxes_lidar"]).all()
+        assert 0 < len(b["name"]) <= 128
+    s = ds[0]
+    p, v = torch.from_numpy(s["points"]), torch.from_numpy(s["points_valid"])
+    gpu = common.build_detector(cfg, dev, dtype=torch.float32, seed=3)
+    with torch.no_grad():
+        ref = model.forward_one(p, v)
+        got = gpu.forward_one(p.to(dev), v.to(dev))
+    for r, g in zip(ref, got):
+        for k in r:
+            tol = 5e-2 * max(float(r[k].abs().max()), 1.0)
+            assert float((g[k].float().cpu() - r[k]).abs().max()) <= tol, k

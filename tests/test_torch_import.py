@@ -97,6 +97,8 @@ MAIN_PATH = [
     "detzero_tpu_torch.utils.kitti_convert",
     "detzero_tpu_torch.utils.visualize", "detzero_tpu_torch.ops.kde",
     "detzero_tpu_torch.tools.eval_oracle",
+    "detzero_tpu_torch.tools.ladder_synthetic",
+    "detzero_tpu_torch.tools.analyze_trace",
 ]
 
 SCRIPT = """

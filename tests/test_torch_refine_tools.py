@@ -171,7 +171,8 @@ def test_train_refine_refusals(tmp_path, monkeypatch):
     data = train_tree(tmp_path / "data", n=6)      # 4 matched: no batch
     args = ["--cfg_file", "configs/ref_model_cfgs/synthetic_grm.yaml",
             "--output_dir", str(tmp_path / "out"), "--workers", "0"]
-    with pytest.raises(ValueError, match="cannot fill one batch of 16"):
+    with pytest.raises(train_refine.TooFewTracks,
+                       match="cannot fill one batch of 16"):
         train_refine.main(args + ["--device", "cpu", "--set", "DATA_PATH",
                                   str(data)])
     empty = tmp_path / "empty"
