@@ -181,7 +181,18 @@ Phases, one line or more each; any failure raises and the exit code is 1:
      1000 clustered boxes on the card against itself on K7's plain
      version (1e-4), `iou3d.boxes_iou_bev` (K3) against the reference's
      formula on K7's overlap (1e-6); within
-     LADDER_PHASE_S.  Its launches are the path `LD`.
+     LADDER_PHASE_S.  Its launches are the path `LD`;
+ 18. the 'union' site mode (DOWNSAMPLE_SITE_MODE: union, spconv's stride-2
+     sites; run after phase 11, before phases 12-17): the flagship's
+     per-level pillars kept against the capacity, candidates before the cap
+     and pillars past the row budget, in both site modes; K8, K2 (every
+     distinct conv) and K10 against their plain versions on the union plan
+     and frame; predict as phase 4 (launches exact, frames/s over 5 frames
+     after 2); K4 and K5 at every distinct conv of the union training step
+     and K6 on its pairs, then one counted step at batch 2 after a warm-up
+     (launches exact, ms/step); `bisect_perf prefix` for both site modes;
+     within UNION_PHASE_S.  Its launches are the paths `U1` (a frame) and
+     `US` (a step), and its kernel records go under "union".
 Every counted path also counts K8: one launch a sample (the plan's 10
 maps).  Phase 2 prints, for every kernel, ptxas's registers, stack frame
 and spills, and fails unless the IoU matrix kernel (the mask instance by
@@ -666,7 +677,7 @@ def nbr_searchsorted(xq, x_in, mode):
     return torch.cat([nbr, nbr.new_full((ny_out, 7, b_out), b_in)], 1)
 
 
-def check_nbr(plan):
+def check_nbr(plan, tag="kernels"):
     """K8 on the card, all 10 maps of this plan in its one launch, against
     its plain version (`pillars.rowpad_nbr_rank`): integers, equal on every
     element; its `torch.searchsorted` yardstick must build the same maps.
@@ -701,14 +712,14 @@ def check_nbr(plan):
                              plain_ms=pms, library_ms=lms),
                         nbytes(q, x_in, got), nbr_ops(q, x_in, mode), "f32")
         cases.append(rc)
-        print(f"[kernels] rowpad_nbr {name} {tuple(got.shape)}: "
+        print(f"[{tag}] rowpad_nbr {name} {tuple(got.shape)}: "
               f"{int((ref[:, :9] < x_in.shape[1]).sum())} taps found, 0 "
               f"elements differ, plain {pms:.3f} ms, searchsorted "
               f"yardstick {lms:.3f} ms, bound {rc['bound_ms']:.5f} ms "
               f"({rc['bound_by']})")
     rec = sum_cases(cases)
     rec["ms"] = time_ms(lambda: rowpad_nbr.rowpad_nbr_maps(args))
-    print(f"[kernels] rowpad_nbr_maps, all {len(args)} maps in one launch: "
+    print(f"[{tag}] rowpad_nbr_maps, all {len(args)} maps in one launch: "
           f"{rec['ms']:.4f} ms vs plain {rec['plain_ms']:.3f} ms, "
           f"searchsorted yardstick {rec['library_ms']:.3f} ms (summed over "
           f"the maps), bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
@@ -788,50 +799,8 @@ def check_kernels(model, pts, pv, device):
     nz = model.grid_zyx[0]
     rec["stream_rowpad_feats"], rp_feats = check_vfe(model, table, "kernels")
 
-    # K2 at every distinct conv of the frame.  Tolerance 2e-2 * max|ref|:
-    # both sides read the same bf16 inputs and round to bf16 once; only
-    # the f32 summation order differs.
-    def fused_case(name, mode, lv_in, lv_out, cin, cout, res, n):
-        nbr, zm_in, zm, nz_in, z_stride = conv_args(plan, mode, lv_in,
-                                                    lv_out)
-        table_in = rp_feats if name.startswith("stem") \
-            else masked_table(zm_in, cin, gen)
-        w = torch.randn((27, cin, cout), generator=gen, device=device) \
-            * (27 * cin) ** -0.5
-        sc = torch.rand(cout, generator=gen, device=device) + 0.5
-        bi = torch.randn(cout, generator=gen, device=device) * 0.1
-        residual = masked_table(zm, cout, gen) if res else None
-        ckw = dict(nz=nz_in, cin=cin, cout=cout, out_nz=zm.shape[1],
-                   mode=mode, z_stride=z_stride, relu=True)
-        a = (table_in, nbr, w, sc, bi, zm, residual)
-        ref = rowpad_conv.rowpad_conv_fused_plain(*a, **ckw)
-        got = rowpad_conv.rowpad_conv_fused(*a, **ckw)
-        torch.cuda.synchronize()
-        err = max_abs(got, ref)
-        tol = 2e-2 * max(float(ref.float().abs().max()), 1e-3)
-        del ref
-        ms = time_ms(lambda: rowpad_conv.rowpad_conv_fused(*a, **ckw))
-        pms = time_ms(lambda: rowpad_conv.rowpad_conv_fused_plain(*a, **ckw),
-                      iters=2, warmup=1)
-        work = conv_work(nbr, zm_in, zm, nz_in, cin, cout, mode, z_stride,
-                         epilogue=True, residual=res)
-        rc = with_bound(dict(case=name, launches=n, max_abs_err=err, tol=tol,
-                             ms=ms, plain_ms=pms), *work, "bf16")
-        torch.cuda.empty_cache()
-        print(f"[kernels] rowpad_conv_fused {name} in {tuple(a[0].shape)} "
-              f"out {tuple(got.shape)}, {n} a frame: max_abs_err {err:.3g} "
-              f"(tol {tol:.3g}), {ms:.4f} ms vs plain {pms:.3f} ms, bound "
-              f"{rc['bound_ms']:.4f} ms ({rc['bound_by']})")
-        if not err <= tol:
-            raise AssertionError(f"rowpad_conv_fused {name} disagrees")
-        return rc
-
-    stem_cin = rp_feats.shape[1] // nz
-    rec["rowpad_conv_fused"] = sum_cases(
-        [fused_case(*c) for c in conv_shapes("K2", stem_cin)])
-    print(f"[kernels] rowpad_conv_fused launch-weighted: "
-          f"{rec['rowpad_conv_fused']['weighted_ms']:.3f} ms a frame "
-          f"(bound {rec['rowpad_conv_fused']['weighted_bound_ms']:.3f} ms)")
+    rec["rowpad_conv_fused"] = check_fused(plan, rp_feats, gen, nz,
+                                           "kernels")
     # K8 on the 10 maps of this frame's plan
     rec["rowpad_nbr"] = check_nbr(plan)
 
@@ -866,6 +835,60 @@ def check_kernels(model, pts, pv, device):
     valid[::17] = False
     rec["nms_walk"]["clustered"] = check_nms(boxes, valid, 0.7,
                                              "1000 clustered boxes")
+    return rec
+
+
+def check_fused(plan, rp_feats, gen, nz, tag):
+    """K2 against its plain version at every distinct conv of a frame on
+    this row-pad plan, the stem on the frame's own K1 table, the others on
+    random tables masked by their levels' zmasks.  Tolerance 2e-2 *
+    max|ref|: both sides read the same bf16 inputs and round to bf16 once;
+    only the f32 summation order differs.  Returns K2's record."""
+    import torch
+    from detzero_tpu_torch.ops import rowpad_conv
+
+    device = rp_feats.device
+
+    def fused_case(name, mode, lv_in, lv_out, cin, cout, res, n):
+        nbr, zm_in, zm, nz_in, z_stride = conv_args(plan, mode, lv_in,
+                                                    lv_out)
+        table_in = rp_feats if name.startswith("stem") \
+            else masked_table(zm_in, cin, gen)
+        w = torch.randn((27, cin, cout), generator=gen, device=device) \
+            * (27 * cin) ** -0.5
+        sc = torch.rand(cout, generator=gen, device=device) + 0.5
+        bi = torch.randn(cout, generator=gen, device=device) * 0.1
+        residual = masked_table(zm, cout, gen) if res else None
+        ckw = dict(nz=nz_in, cin=cin, cout=cout, out_nz=zm.shape[1],
+                   mode=mode, z_stride=z_stride, relu=True)
+        a = (table_in, nbr, w, sc, bi, zm, residual)
+        ref = rowpad_conv.rowpad_conv_fused_plain(*a, **ckw)
+        got = rowpad_conv.rowpad_conv_fused(*a, **ckw)
+        torch.cuda.synchronize()
+        err = max_abs(got, ref)
+        tol = 2e-2 * max(float(ref.float().abs().max()), 1e-3)
+        del ref
+        ms = time_ms(lambda: rowpad_conv.rowpad_conv_fused(*a, **ckw))
+        pms = time_ms(lambda: rowpad_conv.rowpad_conv_fused_plain(*a, **ckw),
+                      iters=2, warmup=1)
+        work = conv_work(nbr, zm_in, zm, nz_in, cin, cout, mode, z_stride,
+                         epilogue=True, residual=res)
+        rc = with_bound(dict(case=name, launches=n, max_abs_err=err, tol=tol,
+                             ms=ms, plain_ms=pms), *work, "bf16")
+        torch.cuda.empty_cache()
+        print(f"[{tag}] rowpad_conv_fused {name} in {tuple(a[0].shape)} "
+              f"out {tuple(got.shape)}, {n} a frame: max_abs_err {err:.3g} "
+              f"(tol {tol:.3g}), {ms:.4f} ms vs plain {pms:.3f} ms, bound "
+              f"{rc['bound_ms']:.4f} ms ({rc['bound_by']})")
+        if not err <= tol:
+            raise AssertionError(f"rowpad_conv_fused {name} disagrees")
+        return rc
+
+    stem_cin = rp_feats.shape[1] // nz
+    rec = sum_cases([fused_case(*c) for c in conv_shapes("K2", stem_cin)])
+    print(f"[{tag}] rowpad_conv_fused launch-weighted: "
+          f"{rec['weighted_ms']:.3f} ms a frame (bound "
+          f"{rec['weighted_bound_ms']:.3f} ms)")
     return rec
 
 
@@ -963,7 +986,7 @@ def check_iou_frame(boxes):
     return rc
 
 
-def check_nms(boxes, valid, thresh, what):
+def check_nms(boxes, valid, thresh, what, tag="kernels"):
     """K10 on score-sorted BEV boxes (k, 5): the mask kernel's words equal
     the pack of K3's own matrix bit for bit (`nms_mask_plain`); the keep
     mask of `nms_keep_mask` (boxes, mask, walk) equal to the plain walk's
@@ -1001,7 +1024,7 @@ def check_nms(boxes, valid, thresh, what):
                     mask_bytes + walk_bytes, mask_ops + walk_ops, "f32")
     rc["mask"] = with_bound(dict(ms=ms_mask), mask_bytes, mask_ops, "f32")
     rc["walk"] = with_bound(dict(ms=ms_walk), walk_bytes, walk_ops, "f32")
-    print(f"[kernels] nms_keep_mask on {what} (k={k}, {int(valid.sum())} "
+    print(f"[{tag}] nms_keep_mask on {what} (k={k}, {int(valid.sum())} "
           f"valid, {n_kept} kept at {thresh}): mask words differ from the "
           f"pack of K3's matrix at {bad_words}, keep masks from the plain "
           f"walk's at {diff}, the float walk's at {diff_f} (all must be 0); "
@@ -1118,12 +1141,14 @@ def stage_times(run, hooked, calls=1):
     return tot
 
 
-def run_predict(device):
-    """Phase 4.  Returns {kernel name: launches in the counted frame}."""
+def run_predict(device, cfg=None, tag="predict"):
+    """Phase 4 (phase 18 with `cfg` the union flagship).  Returns {kernel
+    name: launches in the counted frame}."""
     import torch
 
     pts, pv = entry_points()
-    model = build_model(FLAGSHIP_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    model = build_model(FLAGSHIP_CFG if cfg is None else cfg, FLAGSHIP_KW,
+                        torch.bfloat16, device)
     p = torch.from_numpy(pts).to(device)
     v = torch.from_numpy(pv).to(device)
     for _ in range(2):                               # warm-up frames
@@ -1134,7 +1159,7 @@ def run_predict(device):
     out = model.predict(p, v)                        # the counted frame
     torch.cuda.synchronize()
     launches = read_counts()
-    print(f"[predict] launches in one frame: {launches}")
+    print(f"[{tag}] launches in one frame: {launches}")
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
                  "nms_walk": 1, "rowpad_nbr": NBR_LAUNCHES})
@@ -1145,12 +1170,12 @@ def run_predict(device):
             raise AssertionError(f"non-finite predict output {k}")
     if tuple(out["boxes"].shape) != (1, 256, 9):
         raise AssertionError(f"boxes shape {tuple(out['boxes'].shape)}")
-    print(f"[predict] outputs finite; boxes {tuple(out['boxes'].shape)}, "
+    print(f"[{tag}] outputs finite; boxes {tuple(out['boxes'].shape)}, "
           f"{int(out['mask'].sum())} kept")
     # random weights leave no score above the default 0.1: with a threshold
     # of 0 the walk must keep (and suppress) real boxes
     n_kept = int(model.predict(p, v, score_thresh=0.0)["mask"].sum())
-    print(f"[predict] score_thresh 0: {n_kept} of 256 kept")
+    print(f"[{tag}] score_thresh 0: {n_kept} of 256 kept")
     if not 0 < n_kept:
         raise AssertionError("NMS kept nothing at score_thresh 0")
 
@@ -1165,10 +1190,10 @@ def run_predict(device):
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / frames
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    print(f"[predict] flagship {frames} frames: {ms:.2f} ms/frame, "
+    print(f"[{tag}] flagship {frames} frames: {ms:.2f} ms/frame, "
           f"{1000.0 / ms:.3f} frames/s, peak memory {peak:.2f} GiB")
     st = stage_times(lambda: model.predict(p, v), [model], calls=3)
-    print("[predict] stage ms: " + ", ".join(
+    print(f"[{tag}] stage ms: " + ", ".join(
         f"{k} {t:.2f}" for k, t in st.items()))
     return launches
 
@@ -1321,14 +1346,14 @@ def check_train_kernels(model, batch, device, stem_only=False, tag=None):
     return rec
 
 
-def check_pairwise(model, batch):
-    """Phase 5: K6 against its plain version on the matched pairs that the
-    next training step forms: the model's train-mode forward on the step's
-    batch and weights (BN running statistics restored after it), and per
-    head the boxes decoded at the target cells against their target boxes,
-    batch * max_objs = 1000 pairs in one launch, as center_head_loss
-    launches it.  Both versions round every operation alike, so the
-    outputs must be equal.  Returns K6's record."""
+def check_pairwise(model, batch, tag="train-kernels"):
+    """Phases 5 and 18: K6 against its plain version on the matched pairs
+    that the next training step forms: the model's train-mode forward on
+    the step's batch and weights (BN running statistics restored after
+    it), and per head the boxes decoded at the target cells against their
+    target boxes, batch * max_objs = 1000 pairs in one launch, as
+    center_head_loss launches it.  Both versions round every operation
+    alike, so the outputs must be equal.  Returns K6's record."""
     import torch
     from detzero_tpu_torch.models.detection.center_head import iou_pairs
     from detzero_tpu_torch.ops import iou_bev
@@ -1368,7 +1393,7 @@ def check_pairwise(model, batch):
         n_over = int((overlap[0](a, b) > 0).sum())
         n_bytes += nbytes(a, b) + 4 * a.shape[0]
         n_ops += clip_ops(a, b, pairwise=True)
-        print(f"[train-kernels] boxes_bev_pairwise head {hi}: {a.shape[0]} "
+        print(f"[{tag}] boxes_bev_pairwise head {hi}: {a.shape[0]} "
               f"pairs ({int(tgt['mask'].sum())} matched, {n_over} "
               f"overlapping)")
     # the degenerate pairs: zero-size boxes (what center_head pairs at
@@ -1378,9 +1403,9 @@ def check_pairwise(model, batch):
         got, ref = fn(a, b), plain(a, b)
         torch.cuda.synchronize()
         worst = max(worst, max_abs(got, ref))
-    print(f"[train-kernels] boxes_bev_pairwise, {a.shape[0]} degenerate "
+    print(f"[{tag}] boxes_bev_pairwise, {a.shape[0]} degenerate "
           f"pairs checked too")
-    print(f"[train-kernels] boxes_bev_pairwise, both heads, overlap + iou: "
+    print(f"[{tag}] boxes_bev_pairwise, both heads, overlap + iou: "
           f"max_abs_err {worst:.3g} (must be 0); overlap (what the step "
           f"launches) {ms:.3f} ms vs plain {pms:.3f} ms, iou {iou_ms:.3f} "
           f"ms vs plain {iou_pms:.3f} ms")
@@ -3967,6 +3992,120 @@ def run_ladder_phase(device, tmp):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 18: DOWNSAMPLE_SITE_MODE 'union', spconv's stride-2 sites (an output
+# voxel wherever its 3x3x3 window touches an input voxel), on the flagship at
+# its full width
+UNION_CFG = dict(FLAGSHIP_CFG, DOWNSAMPLE_SITE_MODE="union")
+UNION_PHASE_S = 240.0
+
+
+def site_counts(model, p, v):
+    """Per level and site mode, on this frame: the pillars kept against the
+    level's capacity, the candidates before the cap (L0: the occupied
+    cells; above: the uncapped downsampling of the kept level below) and
+    the kept pillars past the row budget, which the row-pad layout drops;
+    one line a mode."""
+    from detzero_tpu_torch.models.detection.backbone3d_pallas import (
+        augment_plan_rowpad,
+    )
+    from detzero_tpu_torch.models.detection.backbone3d_pillar import (
+        build_pillar_plan, plan_grids,
+    )
+    from detzero_tpu_torch.ops import pillars
+
+    grids = plan_grids(model.grid_zyx)
+    caps = model.pillar_capacities
+    table = model.build_table(p, v)
+    occupied = int(pillars.build_pillar_table(
+        p, v, model.grid_zyx, model.voxel_size, model.pc_range, p.shape[0],
+        feats_mode="stream")["num_pillars"])
+    for mode in pillars.SITE_MODES:
+        plan = augment_plan_rowpad(
+            build_pillar_plan(table, model.grid_zyx, caps, site_mode=mode),
+            model.grid_zyx, model.row_budget)
+        rows = []
+        for lvl, e in enumerate(plan[:4]):
+            cells = occupied
+            if lvl:
+                nz, ny, nx = grids[lvl - 1]
+                below = plan[lvl - 1]
+                cells = int(pillars.downsample_pillars(
+                    below, (ny, nx), nz, 9 * caps[lvl - 1], below["lut"],
+                    site_mode=mode)["num_pillars"])
+            kept = int(e["mask"].sum())
+            dropped = kept - int((e["rp_keep"] & e["mask"]).sum())
+            rows.append((kept, caps[lvl], cells, dropped))
+        print(f"[union] {mode} sites, kept/capacity (candidates, past the "
+              f"row budget of {model.row_budget}): " + "; ".join(
+                  f"L{lvl} {k}/{c} ({n}, {d})"
+                  for lvl, (k, c, n, d) in enumerate(rows)))
+
+
+def run_union_phase(device):
+    """Phase 18: the flagship under 'union' (UNION_CFG, bf16, seeded
+    weights) on entry()'s points.  Returns ({kernel name: its record on
+    the union plan or step}, {"U1": launches of a frame, "US": of a
+    step})."""
+    import torch
+    from detzero_tpu_torch.tools import bisect_perf
+
+    t_phase = time.perf_counter()
+    pts, pv = entry_points()
+    p = torch.from_numpy(pts[0]).to(device)
+    v = torch.from_numpy(pv[0]).to(device)
+    model = build_model(UNION_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    site_counts(model, p, v)
+    # K8, K2 and K10 on the union plan and frame
+    table = model.build_table(p, v)
+    plan = model.build_plan(table)
+    rp_feats = model.vfe(table["stream"])
+    gen = torch.Generator(device=device).manual_seed(1)
+    rec = {"rowpad_nbr": check_nbr(plan, "union kernels"),
+           "rowpad_conv_fused": check_fused(plan, rp_feats, gen,
+                                            model.grid_zyx[0],
+                                            "union kernels")}
+    del table, plan, rp_feats
+    boxes_f, valid_f, thresh_f = frame_nms_input(model, p, v)
+    rec["nms_walk"] = check_nms(boxes_f, valid_f, thresh_f,
+                                "the union frame's NMS input",
+                                "union kernels")
+    del model
+    torch.cuda.empty_cache()
+    by_path = {"U1": run_predict(device, UNION_CFG, "union predict")}
+    torch.cuda.empty_cache()
+
+    # K4, K5 and K6 at the union step's shapes, then the counted step
+    batch = flagship_train_batch(device)
+    model = build_model(UNION_CFG, FLAGSHIP_KW, torch.bfloat16, device)
+    rec.update(check_train_kernels(model, batch, device,
+                                   tag="union train-kernels"))
+    torch.cuda.empty_cache()
+    trainer = flagship_trainer(model, timed=1)
+    trainer.step(batch)                              # warm-up step
+    torch.cuda.synchronize()
+    rec["boxes_iou_bev_pairwise"] = check_pairwise(model, batch,
+                                                   "union train-kernels")
+    by_path["US"], _ = timed_steps("union train", model, trainer, batch,
+                                   device, step_launches(), timed=1)
+    del model, trainer, batch
+    torch.cuda.empty_cache()
+
+    # bisect_perf's prefix stages for both site modes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bisect_") as tmp:
+        lines = bisect_perf.main(["prefix", "--iters", "3", "--output",
+                                  str(Path(tmp) / "bisect_perf.json")])
+    if len(lines) != 10 or not all(np.isfinite(r["ms"]) for r in lines):
+        raise AssertionError(f"bisect_perf prefix: {len(lines)} lines")
+    torch.cuda.empty_cache()
+    took = time.perf_counter() - t_phase
+    print(f"[union] phase 18 took {took:.1f} s (limit {UNION_PHASE_S:.0f})")
+    if took > UNION_PHASE_S:
+        raise AssertionError(f"phase 18 took {took:.1f} s, over "
+                             f"{UNION_PHASE_S:.0f}")
+    return rec, by_path
+
+
 def main():
     import torch
 
@@ -4050,6 +4189,13 @@ def main():
         run_sliding_train(device, warm)
     torch.cuda.empty_cache()
 
+    # 18. the 'union' site mode: per-level counts, K8, K2, K10, K4, K5 and
+    # K6 on its plan and step, its predict and step, bisect_perf's prefix
+    union_rec, union_paths = run_union_phase(device)
+    for name, r in union_rec.items():
+        rec[name]["union"] = r
+    by_path.update(union_paths)
+
     # 12. to 15. in one temporary root, since phase 15 reads phase 12's
     # detector checkpoint and phase 14's refiners
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4114,9 +4260,10 @@ def main():
             kernels[-1]["weighted_ms"] = r["weighted_ms"]
         # K3 on the frame's NMS input, K7 on 1000 x 1000 clustered boxes,
         # K10's mask and walk alone and K10 on the clustered boxes, K1, K4
-        # and K5 at phase 12's shapes (F = 6)
+        # and K5 at phase 12's shapes (F = 6), and phase 18's on the union
+        # plan and step
         for key in ("frame", "big", "mask", "walk", "clustered",
-                    "train_det"):
+                    "train_det", "union"):
             if key in r:
                 kernels[-1][key] = {k: r[key][k] for k in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,8 +1,8 @@
 """Pillar plan for all stride levels (port of `build_pillar_plan`,
 `_downsample_centroids_pillar` and `plan_grids` from the reference's
 backbone3d_pillar.py / backbone3d.py), as the row-padded backbone runs it:
-row LUTs, principal-site downsampling, no gather maps; with a second stage
-also the per-voxel point centroids of every level."""
+row LUTs, downsampling in either site mode, no gather maps; with a second
+stage also the per-voxel point centroids of every level."""
 
 from __future__ import annotations
 
@@ -38,10 +38,13 @@ def lossless_row_budget(grid_zyx) -> int:
 
 
 def build_pillar_plan(table, grid_zyx, capacities: Sequence[int],
+                      site_mode: str = "principal",
                       with_centroids: bool = False):
     """table: `pillars.build_pillar_table` output at stride 1 (dense mode
     when `with_centroids`); capacities: pillar budgets per level;
-    principal-site downsampling.  Returns 5 level dicts (cells, coords2d,
+    site_mode: the downsampled sites (`pillars.downsample_pillars`).  The
+    centroids go to principal sites in either mode, as the reference's do.
+    Returns 5 level dicts (cells, coords2d,
     mask, zmask, and for levels 0..3 the row LUT `lut` and, with
     `with_centroids`, `centroids` (MP, nz, 3): level 0's are the voxels'
     point means, the xyz columns of the dense table)."""
@@ -58,7 +61,8 @@ def build_pillar_plan(table, grid_zyx, capacities: Sequence[int],
         if lvl < 3:
             onz, ony, onx = grids[lvl + 1]
             nxt = pillars.downsample_pillars(
-                cur, (ny, nx), nz, capacities[lvl + 1], in_lut=lut)
+                cur, (ny, nx), nz, capacities[lvl + 1], in_lut=lut,
+                site_mode=site_mode)
             out_lut = pillars.build_row_lut(nxt["cells"], nxt["mask"],
                                             (ony, onx))
             nxt_cur = {k: nxt[k] for k in keys}
@@ -77,9 +81,11 @@ def build_pillar_plan(table, grid_zyx, capacities: Sequence[int],
 def _downsample_centroids_pillar(cur, nxt, in_bev_hw, out_lut, out_nz):
     """Mean point centroid of each downsampled voxel: every occupied input
     voxel adds its centroid to its principal output site (z // 2, the
-    output pillar of its cell).  The sums run in float64 over the voxels
-    sorted by output pillar (`pillars.segment_sum_sorted`), so they do not
-    depend on the device's scatter order."""
+    output pillar of its cell; under 'union' that site exists unless the
+    level's capacity dropped it, and then the voxel adds nothing).  The
+    sums run in float64 over the voxels sorted by output pillar
+    (`pillars.segment_sum_sorted`), so they do not depend on the device's
+    scatter order."""
     ny, nx = in_bev_hw
     onx = -(-nx // 2)
     ony = -(-ny // 2)

@@ -111,9 +111,10 @@ class CenterPoint(nn.Module):
         cfg = dict(model_cfg)
         if cfg.get("BACKBONE3D", "pillar") not in _BACKBONES:
             raise ValueError(f"unknown BACKBONE3D {cfg['BACKBONE3D']!r}")
-        if cfg.get("DOWNSAMPLE_SITE_MODE", "principal") != "principal":
-            raise NotImplementedError("only the 'principal' site mode is "
-                                      "ported")
+        self.site_mode = cfg.get("DOWNSAMPLE_SITE_MODE", "principal")
+        if self.site_mode not in pillars.SITE_MODES:
+            raise ValueError(f"unknown DOWNSAMPLE_SITE_MODE "
+                             f"{self.site_mode!r}")
         self.dtype = dtype
         self.max_objs = int(max_objs)
         self.with_velocity = bool(cfg.get("WITH_VELOCITY", True))
@@ -231,6 +232,7 @@ class CenterPoint(nn.Module):
 
     def build_plan(self, table):
         plan = build_pillar_plan(table, self.grid_zyx, self.pillar_capacities,
+                                 site_mode=self.site_mode,
                                  with_centroids=self.second_stage)
         self._stage("row-pad maps")
         return augment_plan_rowpad(plan, self.grid_zyx, self.row_budget)

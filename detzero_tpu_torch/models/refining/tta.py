@@ -202,6 +202,32 @@ def prm_tta_expand(sample, variants=PRM_DEFAULT_VARIANTS):
     }
 
 
+def prm_tta_apply_forward(centers, headings, variant):
+    """A variant applied forward to init-coord track poses, centers (T, 3)
+    and headings (T,): what a perfect model would predict on the
+    transformed input (the targets `prm_tta_fuse` inverts)."""
+    kind, val = parse_variant(variant)
+    c = np.asarray(centers, _f32).copy()
+    h = np.asarray(headings, _f32)
+    if kind == "orig":
+        return c, h
+    if kind == "flip_x":
+        c[..., 1] *= -1
+        return c, -h
+    if kind == "flip_y":
+        c[..., 0] *= -1
+        return c, -(h + math.pi)
+    if kind == "flip_xy":
+        c[..., :2] *= -1
+        return c, h - math.pi
+    if kind == "scale":
+        return c * val, h
+    if kind == "rot":
+        return np.concatenate([_rot2d(c[..., 0:2], val), c[..., 2:]],
+                              axis=-1), h + val
+    raise ValueError(f"unknown TTA variant {variant!r}")
+
+
 def prm_tta_fuse(centers, headings, variants=PRM_DEFAULT_VARIANTS):
     """centers (K, T, 3), headings (K, T) decoded per variant -> fused
     ((T, 3), (T,)): each variant inverted, then the centers' mean and the

@@ -221,3 +221,20 @@ def nms_bev(boxes, scores, thresh: float, pre_max: int = 512,
     n_keep = torch.clamp(keep.sum(), max=post_max)
     out_mask = torch.arange(post_max, device=boxes.device) < n_keep
     return out_idx, out_mask
+
+
+def multi_class_nms(boxes, scores, labels, num_classes: int, thresh,
+                    pre_max: int = 512, post_max: int = 128,
+                    valid_mask=None):
+    """Per-class rotated NMS: one `nms_bev` a class (one K10 launch each)
+    with the other classes' boxes masked invalid.  `thresh` is one float
+    or one a class.  Returns [(indices, keep_mask)] a class."""
+    outs = []
+    for c in range(num_classes):
+        t = thresh[c] if hasattr(thresh, "__len__") else thresh
+        vm = labels == c
+        if valid_mask is not None:
+            vm = vm & valid_mask
+        outs.append(nms_bev(boxes, scores, t, pre_max, post_max,
+                            valid_mask=vm))
+    return outs

@@ -1,8 +1,8 @@
 """Z-dense pillar tables, the row-padded conv layout and its neighbour maps.
 
 Port of the parts of `detzero_tpu/ops/pillars.py` that CenterPoint runs:
-the pillar table (both feature modes), the row LUT, principal-site
-downsampling, the row-padded layout with its rank-by-count neighbour maps,
+the pillar table (both feature modes), the row LUT, downsampling in both
+site modes, the row-padded layout with its rank-by-count neighbour maps,
 the (3,1,1) z-conv, the BEV densify, and the PDV second stage's voxel query
 through the row LUT.  Every function returns the same
 values as its JAX counterpart; integer outputs are bit-identical.
@@ -24,6 +24,10 @@ INVALID_ID = 2**31 - 1
 NBR_BIG = 1 << 28
 # nbr tensors are (ny, NBR_ROWS, B) int32: rows 0..8 hold tap ranks
 NBR_ROWS = 16
+# the 3x3 BEV window's offsets (dy, dx), row-major
+BEV_OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+# downsampling's output sites (`downsample_pillars`)
+SITE_MODES = ("principal", "union")
 
 
 def _arange(n, like):
@@ -199,36 +203,69 @@ def _unique_capped_cells(cand, capacity):
     return torch.where(mask, out, torch.full_like(out, INVALID_ID)), mask, n
 
 
-def downsample_pillars(table, in_bev_hw, in_nz, out_capacity, in_lut):
-    """Stride-(2,2,2) output pillar set and z occupancy, 'principal' site
-    mode on the LUT route: out voxel (zo, yo, xo) is occupied iff an
-    occupied input voxel has floor-halved coords (zo, yo, xo)."""
+def downsample_pillars(table, in_bev_hw, in_nz, out_capacity, in_lut,
+                       site_mode="principal"):
+    """Stride-(2,2,2) output pillar set and z occupancy on the LUT route.
+
+    site_mode "principal": out voxel (zo, yo, xo) is occupied iff an
+    occupied input voxel has floor-halved coords (zo, yo, xo).  "union":
+    spconv's stride-2, padding-1 `SparseConv3d`: occupied iff the 3x3x3
+    window around (2zo, 2yo, 2xo) touches an occupied input voxel (the 9
+    BEV offsets give 9 candidates a pillar, capped as the reference caps
+    them)."""
     ny, nx = in_bev_hw
     ony, onx = -(-ny // 2), -(-nx // 2)
     onz = -(-in_nz // 2)
     cells, mask, zmask = table["cells"], table["mask"], table["zmask"]
     y = torch.div(cells, nx, rounding_mode="floor")
     x = cells % nx
-    cand = torch.where(mask, torch.div(y, 2, rounding_mode="floor") * onx
-                       + torch.div(x, 2, rounding_mode="floor"),
-                       torch.full_like(cells, INVALID_ID))
+    invalid = torch.full_like(cells, INVALID_ID)
+    if site_mode == "principal":
+        cand = torch.where(mask, torch.div(y, 2, rounding_mode="floor") * onx
+                           + torch.div(x, 2, rounding_mode="floor"), invalid)
+    elif site_mode == "union":
+        cols = []
+        for dy, dx in BEV_OFFSETS:
+            ty, tx = y - dy, x - dx
+            yo = torch.div(ty, 2, rounding_mode="floor")
+            xo = torch.div(tx, 2, rounding_mode="floor")
+            inb = ((ty % 2 == 0) & (tx % 2 == 0) & (yo >= 0) & (yo < ony)
+                   & (xo >= 0) & (xo < onx) & mask)
+            cols.append(torch.where(inb, yo * onx + xo, invalid))
+        cand = torch.cat(cols)
+    else:
+        raise ValueError(f"unknown site_mode {site_mode!r}")
     out_cells, out_mask, n_out = _unique_capped_cells(cand, out_capacity)
     oc2d = torch.stack([torch.div(out_cells, onx, rounding_mode="floor"),
                         out_cells % onx], 1)
     oc2d = torch.where(out_mask[:, None], oc2d, 0).to(I32)
 
-    pad = in_nz + in_nz % 2
-    zm = F.pad(zmask, (0, pad - in_nz))
+    def in_rows(yy, xx):
+        """Input pillar rows at (yy, xx) and whether one is there."""
+        inb = (yy >= 0) & (yy < ny) & (xx >= 0) & (xx < nx) & out_mask
+        v = in_lut[torch.clamp(yy * nx + xx, 0, ny * nx - 1).long()]
+        return torch.clamp(v - 1, min=0).long(), (v > 0) & inb
+
     zagg = torch.zeros(out_capacity, onz, dtype=torch.bool,
                        device=cells.device)
-    for cy in (0, 1):
-        for cx in (0, 1):
-            yy, xx = 2 * oc2d[:, 0] + cy, 2 * oc2d[:, 1] + cx
-            inb = (yy < ny) & (xx < nx) & out_mask
-            v = in_lut[torch.clamp(yy * nx + xx, 0, ny * nx - 1).long()]
-            child = zm[torch.clamp(v - 1, min=0).long()] \
-                & ((v > 0) & inb)[:, None]
-            zagg |= child.reshape(-1, pad // 2, 2).any(-1)[:, :onz]
+    if site_mode == "principal":
+        # the 4 children pillars, their z pairs OR-reduced
+        pad = in_nz + in_nz % 2
+        zm = F.pad(zmask, (0, pad - in_nz))
+        for cy in (0, 1):
+            for cx in (0, 1):
+                row, ok = in_rows(2 * oc2d[:, 0] + cy, 2 * oc2d[:, 1] + cx)
+                child = zm[row] & ok[:, None]
+                zagg |= child.reshape(-1, pad // 2, 2).any(-1)[:, :onz]
+    else:
+        # any occupied input in the 3-window around (2zo, 2yo, 2xo): the
+        # z window read through a one-voxel halo
+        zext = F.pad(zmask, (1, 1))
+        zo = 2 * torch.arange(onz, device=cells.device)
+        for dy, dx in BEV_OFFSETS:
+            row, ok = in_rows(2 * oc2d[:, 0] + dy, 2 * oc2d[:, 1] + dx)
+            nb = zext[row] & ok[:, None]
+            zagg |= nb[:, zo] | nb[:, zo + 1] | nb[:, zo + 2]
     zagg &= out_mask[:, None]
     return {"cells": out_cells, "coords2d": oc2d, "mask": out_mask,
             "num_pillars": n_out, "zmask": zagg,

@@ -65,8 +65,9 @@ def test_stream_vfe_kernel(tiny):
 # gradients (5 is the stem's, padded to the MMA depth 16) and every cout
 WIDTHS = [(5, 16), (16, 32), (32, 64), (64, 128), (128, 128), (128, 16)]
 # the tiny plan as built; with row 1 of every level emptied and row 2
-# filled (every site occupied); rebuilt at row budget 8 (rows overflow)
-EDGES = ["plan", "rows", "budget8"]
+# filled (every site occupied); rebuilt at row budget 8 (rows overflow);
+# rebuilt with the 'union' site mode (output sites with no principal child)
+EDGES = ["plan", "rows", "budget8", "union"]
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +88,12 @@ def plans(tiny):
         row_budget=8)
     assert b8[0]["rp_zmask"].shape[2] == 8
     assert int(b8[0]["rp_keep"].sum()) < int(plan[0]["rp_keep"].sum())
-    return {"plan": plan, "rows": rows, "budget8": b8}
+    union = augment_plan_rowpad(build_pillar_plan(
+        table, gpu.grid_zyx, gpu.pillar_capacities, site_mode="union"),
+        gpu.grid_zyx, gpu.row_budget)
+    assert any(not torch.equal(u["rp_zmask"], e["rp_zmask"])
+               for u, e in zip(union[1:4], plan[1:4]))
+    return {"plan": plan, "rows": rows, "budget8": b8, "union": union}
 
 
 def _weight(cin, cout, g):
@@ -283,12 +289,14 @@ def test_overlap_matrix_kernel(dev, n, m):
     assert (got - ref).abs().max() <= 1e-5 * float(ref.max())
 
 
+@pytest.mark.parametrize("site_mode", ["principal", "union"])
 @pytest.mark.parametrize("row_budget", [8, 128])
-def test_rowpad_nbr_kernel(tiny, dev, row_budget):
+def test_rowpad_nbr_kernel(tiny, dev, row_budget, site_mode):
     """K8 against its plain version on the card, all 10 maps of the tiny
     plan in one launch: equal on every element.  Row budget 8 drops the
-    pillars past the 8th of a row.  `augment_plan_rowpad` builds the same
-    maps in one launch a sample."""
+    pillars past the 8th of a row; 'union' sites read windows with no
+    principal child.  `augment_plan_rowpad` builds the same maps in one
+    launch a sample."""
     from detzero_tpu_torch.models.detection.backbone3d_pallas import (
         augment_plan_rowpad)
     from detzero_tpu_torch.models.detection.backbone3d_pillar import (
@@ -296,7 +304,8 @@ def test_rowpad_nbr_kernel(tiny, dev, row_budget):
     from detzero_tpu_torch.ops import pillars, rowpad_nbr
 
     _, gpu, *_, table, _ = tiny
-    plan = build_pillar_plan(table, gpu.grid_zyx, gpu.pillar_capacities)
+    plan = build_pillar_plan(table, gpu.grid_zyx, gpu.pillar_capacities,
+                             site_mode=site_mode)
     xq = []
     for lvl, (_, ny, nx) in enumerate(plan_grids(gpu.grid_zyx)[:4]):
         lay = pillars.rowpad_layout(plan[lvl]["cells"], plan[lvl]["mask"],

@@ -99,6 +99,7 @@ MAIN_PATH = [
     "detzero_tpu_torch.tools.eval_oracle",
     "detzero_tpu_torch.tools.ladder_synthetic",
     "detzero_tpu_torch.tools.analyze_trace",
+    "detzero_tpu_torch.tools.bisect_perf",
 ]
 
 SCRIPT = """

@@ -293,6 +293,8 @@ def train_then_test(rank, world, tmp, train_argv, test_argv):
            "mismatch": trainer.replica_mismatch(),
            "logfiles": sorted(p.name for p in trainer.ckpt.ckpt_dir.parent
                               .glob("log_*"))}
+    # every rank lists the logs before rank 0's test_det writes its own
+    mesh.barrier()
     del trainer
     res = test_det.main(["--data_parallel"] + test_argv)
     out["test"] = None if res is None else {
