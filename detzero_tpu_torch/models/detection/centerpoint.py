@@ -40,6 +40,9 @@ on the card unless the caller asks for another device (`device="cpu"`).
 Stage timing: `stage_hook`, when set to a callable, is called with a stage's
 name where each stage of `prepare`, `network`, `predict` and `loss` begins
 (chip_smoke.py records a CUDA event there); None costs one attribute test.
+The same marks are stages of the active `core/profiling` recording, under a
+`predict` span a call, a `sample` span a sample of it and a `prepare` span
+a sample of `prepare`; with no recording they cost one more test.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from detzero_tpu_torch.core import profiling
 from detzero_tpu_torch.models.detection.backbone2d import BaseBEVBackbone
 from detzero_tpu_torch.models.detection.backbone3d_pallas import (
     PallasResBackbone8x, SparseConvBNReLU, augment_plan_rowpad, stack_plans,
@@ -211,6 +215,8 @@ class CenterPoint(nn.Module):
     def _stage(self, name):
         if self.stage_hook is not None:
             self.stage_hook(name)
+        if profiling.ACTIVE is not None:
+            profiling.ACTIVE.mark(name)
 
     # ---------------- the stages of one sample ----------------
 
@@ -243,19 +249,20 @@ class CenterPoint(nn.Module):
         second stage the dense table gathered) and plan, stacked along the
         BEV-row axis into one (N*ny, nz*F, B) table and one plan."""
         feats, plans = [], []
-        for p, v in zip(points, points_valid):
-            self._stage("table")
-            table = self.build_table(p, v)
-            self._stage("plan")
-            plan = self.build_plan(table)
-            self._stage("gather" if self.second_stage else "vfe")
-            if self.second_stage:
-                dense = table["feats"]
-                feats.append(pillars.rowpad_gather(
-                    dense.reshape(dense.shape[0], -1).to(self.dtype),
-                    plan[0]["rp_gidx"], plan[0]["rp_gvalid"]))
-            else:
-                feats.append(self.vfe(table["stream"]))
+        for i, (p, v) in enumerate(zip(points, points_valid)):
+            with profiling.span("prepare", "index", i):
+                self._stage("table")
+                table = self.build_table(p, v)
+                self._stage("plan")
+                plan = self.build_plan(table)
+                self._stage("gather" if self.second_stage else "vfe")
+                if self.second_stage:
+                    dense = table["feats"]
+                    feats.append(pillars.rowpad_gather(
+                        dense.reshape(dense.shape[0], -1).to(self.dtype),
+                        plan[0]["rp_gidx"], plan[0]["rp_gvalid"]))
+                else:
+                    feats.append(self.vfe(table["stream"]))
             plans.append(plan)
         self._stage("stack")
         return torch.cat(feats), stack_plans(plans)
@@ -348,22 +355,25 @@ class CenterPoint(nn.Module):
         sqrt(sigmoid(cls) * proposal score) (decode_kwargs unused, as in
         the reference)."""
         outs = []
-        with self._mode(False):
-            for p, v in zip(points, points_valid):
-                preds, roi = self.network(*self.prepare(p[None], v[None]))
-                self._stage("decode+nms" if roi is None else "refined boxes")
-                if roi is None:
-                    outs.append(self.decode(
-                        [{k: x[0] for k, x in h.items()} for h in preds],
-                        **decode_kwargs))
-                    continue
-                boxes, scores = pdv_predict(
-                    roi["cls_logit"][0], roi["reg_deltas"][0],
-                    roi["rois"][0], roi["roi_scores"][0])
-                outs.append({"boxes": boxes, "scores": scores,
-                             "labels": roi["roi_labels"][0],
-                             "mask": roi["roi_mask"][0]})
-        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        with profiling.span("predict"), self._mode(False):
+            for i, (p, v) in enumerate(zip(points, points_valid)):
+                with profiling.span("sample", "index", i):
+                    preds, roi = self.network(*self.prepare(p[None],
+                                                            v[None]))
+                    self._stage("decode+nms" if roi is None
+                                else "refined boxes")
+                    if roi is None:
+                        outs.append(self.decode(
+                            [{k: x[0] for k, x in h.items()} for h in preds],
+                            **decode_kwargs))
+                        continue
+                    boxes, scores = pdv_predict(
+                        roi["cls_logit"][0], roi["reg_deltas"][0],
+                        roi["rois"][0], roi["roi_scores"][0])
+                    outs.append({"boxes": boxes, "scores": scores,
+                                 "labels": roi["roi_labels"][0],
+                                 "mask": roi["roi_mask"][0]})
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     def targets(self, gt_boxes, gt_classes, gt_valid):
         """Per-head targets of a batch (gt_boxes (N, M, 7|9), gt_classes

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from detzero_tpu_torch.core import profiling
 from detzero_tpu_torch.core.checkpoint import CheckpointManager
 from detzero_tpu_torch.core.mesh import Mesh, barrier, make_mesh, rank_seed
 from detzero_tpu_torch.core.optim import Optimizer
@@ -52,9 +53,10 @@ class Trainer:
     that depends only on (seed, step, rank), so a resumed run draws what an
     unbroken one draws (the second stage's RoI subsample).  `stage_hook`, as
     `CenterPoint.stage_hook`, is called where the backward, the gradient
-    all-reduce (under a group) and the optimizer step begin.  With
-    `ckpt_dir`, checkpoints go to that directory and metrics to
-    `<ckpt_dir>/metrics.jsonl`.  `mesh` defaults to `make_mesh()`: every
+    all-reduce (under a group) and the optimizer step begin; the active
+    `core/profiling` recording gets the same stages under a `step` span a
+    call, which carries `step_count`.  With `ckpt_dir`, checkpoints go to
+    that directory and metrics to `<ckpt_dir>/metrics.jsonl`.  `mesh` defaults to `make_mesh()`: every
     rank of the process group, or one process without one."""
 
     stage_hook = None
@@ -99,6 +101,8 @@ class Trainer:
     def _stage(self, name):
         if self.stage_hook is not None:
             self.stage_hook(name)
+        if profiling.ACTIVE is not None:
+            profiling.ACTIVE.mark(name)
 
     # ------------------------------------------------------------------
     def broadcast_state(self):
@@ -135,18 +139,19 @@ class Trainer:
         batch).  Returns (loss, aux, gnorm) as detached tensors on the
         model's device: this rank's loss and aux, the global gradient's
         norm before clipping; nothing waits for the device."""
-        kwargs = dict(batch)
-        kwargs.setdefault("generator", self.step_generator())
-        loss, aux = self.model.loss(**kwargs)
-        self._stage("backward")
-        self.optimizer.zero_grad()
-        loss.backward()
-        if self.mesh.group is not None:
-            self._stage("gradient all-reduce")
-            self.average_gradients()
-        self._stage("optimizer")
-        gnorm = self.optimizer.step()
-        self.step_count += 1
+        with profiling.span("step", "step_count", self.step_count):
+            kwargs = dict(batch)
+            kwargs.setdefault("generator", self.step_generator())
+            loss, aux = self.model.loss(**kwargs)
+            self._stage("backward")
+            self.optimizer.zero_grad()
+            loss.backward()
+            if self.mesh.group is not None:
+                self._stage("gradient all-reduce")
+                self.average_gradients()
+            self._stage("optimizer")
+            gnorm = self.optimizer.step()
+            self.step_count += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}, gnorm
 
     def steps(self, batches):
@@ -275,7 +280,7 @@ class Trainer:
                 break
             if profile_dir and prof is None and \
                     profile_range[0] <= self.step_count < profile_range[1]:
-                prof = _start_profiler()
+                prof = profiling.start_capture()
             loss, aux, gnorm = self.step(call) if k == 1 else \
                 self.steps(call)
             step = self.step_count
@@ -326,23 +331,10 @@ class Trainer:
                 self.tb.add_scalar(k, v, step)
 
 
-def _start_profiler():
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
-
-
 def _stop_profiler(prof, profile_dir, logger, mesh):
     """Stops `prof` and writes its Chrome trace into profile_dir (under a
     group, a file a rank); returns None (no profiler running)."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    prof.stop()
+    profiling.stop_capture(prof)
     Path(profile_dir).mkdir(parents=True, exist_ok=True)
     rank = f"r{mesh.rank}_" if mesh.group is not None else ""
     path = Path(profile_dir) / f"trace_{rank}{int(time.time())}.json"

@@ -11,8 +11,9 @@ gives planes:
 
   * `/device:cuda:<i>`: the card's kernel, memcpy and memset events (one
     a launch), so summing durations by name gives the kernels' own time;
-  * `/host:CPU`: the CPU ops, the `annotate` regions and the CUDA runtime
-    calls.  These nest (an op inside an op inside a region), so a name's
+  * `/host:CPU`: the CPU ops, the program's spans and stages (the
+    regions `core/profiling` opens while its capture runs) and the CUDA
+    runtime calls.  These nest (an op inside an op inside a region), so a name's
     total is its inclusive time, as the reference says of its host planes.
 
 Each plane's table lists, by total time: total ms, share of the plane's

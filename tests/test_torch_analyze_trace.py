@@ -79,7 +79,7 @@ def test_trace_of_core_profiling(tmp_path):
     read as well)."""
     x = torch.randn(64, 64)
     with profiling.trace(tmp_path / "prof"):
-        with profiling.annotate("step", step_num=1):
+        with profiling.span("step", "step_num", 1):
             (x @ x).sum()
     agg = analyze_trace.aggregate(analyze_trace.trace_files(tmp_path))
     host = agg["/host:CPU"]

@@ -1143,3 +1143,37 @@ def test_ladder_run_det_card_vs_cpu(dev, tmp_path):
         for k in r:
             tol = 5e-2 * max(float(r[k].abs().max()), 1.0)
             assert float((g[k].float().cpu() - r[k]).abs().max()) <= tol, k
+
+
+def test_kernels_land_in_their_spans(tiny):
+    """Under a device-only trace, each K2 kernel's launch record lies in
+    the `backbone3d` stage once the spans are on the trace's clock, each
+    K1's in `vfe` and each NMS walk's (K10) in `decode+nms`."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from detzero_tpu_torch.core import profiling
+
+    _, gpu, p, v, _, _ = tiny
+    pts, valid = p[None].expand(2, -1, -1), v[None].expand(2, -1)
+    gpu.predict(pts, valid, score_thresh=0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.recording() as rec:
+            gpu.predict(pts, valid, score_thresh=0.0)
+            torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    launch = {e.correlation_id(): e.start_ns() for e in events
+              if e.device_type() == cpu and e.name().startswith("cu")}
+    fit = profiling.align(rec, profiling.host_records(prof))
+    assert fit["spread_ns"] <= 5_000, fit
+    want = {r"rowpad_conv_mma_kernel<\d+, true": ("backbone3d", 40),
+            r"stream_vfe": ("vfe", 2), r"nms_walk": ("decode+nms", 2)}
+    for pat, (stage, n) in want.items():
+        kernels = [e for e in events if e.device_type() != cpu
+                   and re.search(pat, e.name())]
+        assert len(kernels) == n, (pat, len(kernels))
+        got = [rec.innermost(launch[e.correlation_id()]) for e in kernels]
+        assert [s.name if s else None for s in got] == [stage] * n, pat

@@ -467,7 +467,7 @@ def test_stage_timer_report_format(tmp_path):
             raise ValueError
     assert port.as_dict()["fails"]["calls"] == 1
     with profiling.trace(tmp_path / "trace"):
-        with profiling.annotate("step", step_num=0):
+        with profiling.span("step", "step_num", 0):
             (x * 2).sum()
     assert "step step_num=0" in (tmp_path / "trace" / "trace.json") \
         .read_text()
