@@ -77,13 +77,14 @@ def stack_plans(plans):
     """Per-sample rowpad plans -> one plan for the batch: levels 0..3 carry
     the row-padded zmasks and neighbour maps stacked along the BEV-row axis
     (ranks stay row-local, so the maps need no offset); level 3 the
-    compact slots of every sample into the stacked table, for the z-conv;
-    with centroids in the plans (the second stage), levels 2 and 3 also
-    the slots and the samples' cells, masks, zmasks, row LUTs and
-    centroids stacked along a leading batch axis, for the multi-scale
-    tables, whose voxel query probes one sample at a time; the final level
-    the samples' compact zmasks concatenated plus their cells and masks
-    stacked (B, MP) for the per-sample densify."""
+    compact slots of every sample into the stacked table and the inverse
+    map (gidx offset into the stacked compact table, for the gradient), for
+    the z-conv; with centroids in the plans (the second stage), levels 2
+    and 3 also the slots, the inverse maps and the samples' cells, masks,
+    zmasks, row LUTs and centroids stacked along a leading batch axis, for
+    the multi-scale tables, whose voxel query probes one sample at a time;
+    the final level the samples' compact zmasks concatenated plus their
+    cells and masks stacked (B, MP) for the per-sample densify."""
     out = [{k: torch.cat([p[lvl][k] for p in plans]) for k in _RP_STACKED
             if k in plans[0][lvl]} for lvl in range(4)]
     multi_scale = "centroids" in plans[0][3]
@@ -93,6 +94,11 @@ def stack_plans(plans):
         out[lvl]["rp_slot"] = torch.cat([p[lvl]["rp_slot"] + b * rows
                                          for b, p in enumerate(plans)])
         out[lvl]["rp_keep"] = torch.cat([p[lvl]["rp_keep"] for p in plans])
+        mp = plans[0][lvl]["rp_slot"].shape[0]  # compact rows of one sample
+        out[lvl]["rp_gidx"] = torch.cat([p[lvl]["rp_gidx"] + b * mp
+                                         for b, p in enumerate(plans)])
+        out[lvl]["rp_gvalid"] = torch.cat([p[lvl]["rp_gvalid"]
+                                           for p in plans])
         if multi_scale:
             out[lvl].update({k: torch.stack([p[lvl][k] for p in plans])
                              for k in _SAMPLE_KEYS})
@@ -231,7 +237,8 @@ class PallasResBackbone8x(nn.Module):
                 multi_scale[f"x_conv{lvl + 1}"] = dict(
                     {k: e[k] for k in _SAMPLE_KEYS if k in e},
                     features=pillars.from_rowpad(
-                        x, e["rp_slot"], e["rp_keep"]).reshape(
+                        x, e["rp_slot"], e["rp_keep"], e["rp_gidx"],
+                        e["rp_gvalid"]).reshape(
                         n, mp * nz, self.channels[lvl]))
             if lvl < 3:
                 x = getattr(self, self.downs[lvl])(
@@ -244,7 +251,8 @@ class PallasResBackbone8x(nn.Module):
         if "x_conv4" in multi_scale:
             xc = multi_scale["x_conv4"]["features"]
         else:
-            xc = pillars.from_rowpad(x, l3["rp_slot"], l3["rp_keep"])
+            xc = pillars.from_rowpad(x, l3["rp_slot"], l3["rp_keep"],
+                                     l3["rp_gidx"], l3["rp_gvalid"])
         xz = getattr(self, self.zconv)(xc.reshape(n * mp3, nz3, c3),
                                        final["zmask"], out_nz=grids[4][0])
         xz = xz.reshape(n, mp3, -1)

@@ -10,6 +10,12 @@ values as its JAX counterpart; integer outputs are bit-identical.
 Integers stay int32 where the reference computes in int32, so that the
 `INVALID_ID` and `NBR_BIG` sentinels compare the same way.  Sorts that the
 reference relies on being stable are `stable=True` here.
+
+The backbone's two exit relayouts, `from_rowpad` and `densify_pillars`, have
+the reference's gather-only backward: autograd of a plain `x[idx]` is an
+accumulating `index_put_`, which CUDA runs as a sort and walks every run of
+one index on one warp, and both gathers point their many empty rows at one
+index.  `GATHER_VJPS` counts the backwards taken.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ NBR_ROWS = 16
 BEV_OFFSETS = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
 # downsampling's output sites (`downsample_pillars`)
 SITE_MODES = ("principal", "union")
+# backwards of `from_rowpad` and `densify_pillars` run
+GATHER_VJPS = 0
 
 
 def _arange(n, like):
@@ -380,12 +388,36 @@ def rowpad_gather(values, gidx, gvalid):
     return got.permute(0, 2, 1).contiguous()
 
 
-def from_rowpad(rp, slot, keep, fill=0.0):
-    """Gather the compact per-pillar rows (MP, D) back out of (ny, D, B)."""
+def _from_rowpad(rp, slot, keep, fill):
     ny, d, b = rp.shape
     flat = rp.permute(0, 2, 1).reshape(ny * b, d)
     got = flat[torch.clamp(slot, max=ny * b - 1).long()]
     return torch.where(keep[:, None], got, torch.full_like(got, fill))
+
+
+class _FromRowpad(torch.autograd.Function):
+    """The reference's `from_rowpad_g`: the row-pad map is a bijection
+    between kept rows and live slots, so the cotangent of the compact rows
+    is `rowpad_gather` of their gradient.  No gradient for the maps."""
+
+    @staticmethod
+    def forward(ctx, rp, slot, keep, gidx, gvalid, fill):
+        ctx.save_for_backward(gidx, gvalid)
+        return _from_rowpad(rp, slot, keep, fill)
+
+    @staticmethod
+    def backward(ctx, g):
+        global GATHER_VJPS
+        GATHER_VJPS += 1
+        gidx, gvalid = ctx.saved_tensors
+        return (rowpad_gather(g, gidx, gvalid),) + (None,) * 5
+
+
+def from_rowpad(rp, slot, keep, gidx, gvalid, fill=0.0):
+    """Gather the compact per-pillar rows (MP, D) back out of (ny, D, B);
+    `gidx`, `gvalid` (the inverse map, `rowpad_layout`) carry the
+    gradient back."""
+    return _FromRowpad.apply(rp, slot, keep, gidx, gvalid, fill)
 
 
 def rowpad_xcoords(xcoord, gidx, gvalid):
@@ -433,9 +465,7 @@ def rowpad_nbr_rank(xq_rp, x_in, mode="subm"):
     return torch.stack(rows, 1)
 
 
-def densify_pillars(feats, cells, mask, bev_hw):
-    """(MP, D) pillar features -> dense (ny, nx, D) BEV map.  Live pillars
-    have unique cells (the pillar table guarantees it)."""
+def _densify(feats, cells, mask, bev_hw):
     ny, nx = bev_hw
     safe = torch.where(mask, cells, torch.full_like(cells, ny * nx))
     lut = torch.zeros(ny * nx + 1, dtype=I32, device=feats.device)
@@ -443,3 +473,31 @@ def densify_pillars(feats, cells, mask, bev_hw):
                              _arange(feats.shape[0], cells) + 1, "amax")
     padded = torch.cat([feats.new_zeros(1, feats.shape[-1]), feats], 0)
     return padded[lut[:-1].long()].reshape(ny, nx, -1)
+
+
+class _Densify(torch.autograd.Function):
+    """The reference's VJP of `densify_pillars`: live cells are unique, so
+    a live pillar's gradient is its cell's row of the map's.  No gradient
+    for the cells or the mask."""
+
+    @staticmethod
+    def forward(ctx, feats, cells, mask, bev_hw):
+        ctx.save_for_backward(cells, mask)
+        ctx.bev_hw = bev_hw
+        return _densify(feats, cells, mask, bev_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        global GATHER_VJPS
+        GATHER_VJPS += 1
+        cells, mask = ctx.saved_tensors
+        ny, nx = ctx.bev_hw
+        got = g.reshape(ny * nx, -1)[torch.where(mask, cells, 0).long()]
+        return (torch.where(mask[:, None], got, torch.zeros_like(got)),
+                None, None, None)
+
+
+def densify_pillars(feats, cells, mask, bev_hw):
+    """(MP, D) pillar features -> dense (ny, nx, D) BEV map.  Live pillars
+    have unique cells (the pillar table guarantees it)."""
+    return _Densify.apply(feats, cells, mask, bev_hw)
