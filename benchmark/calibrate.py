@@ -18,12 +18,17 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def control_numbers(cell, seed, device):
-    """The control's numbers on the frames a run checks first."""
+    """The control's numbers on the frames a run checks first: the
+    entry's own `control` where its module gives one."""
     import torch
     from benchmark import checks, harness, scene, weights
     from benchmark.reference import network, train as ref_train
 
     run = harness.Run(cell, seed, 0, False, device, time.perf_counter())
+    if hasattr(run.entry, "control"):
+        return run.entry.control(cell, seed, device)
+    if cell["entry"] not in harness.ENTRIES:
+        raise ValueError(f"entry {cell['entry']!r} gives no control")
     shapes = harness.state_shapes(harness.build_model(run.config, "meta"))
     pool = scene.make_pool(run.mix, seed, int(run.config["NUM_POINT_BUDGET"]),
                            int(run.config["MAX_OBJS"]), device)

@@ -14,10 +14,11 @@ import random
 import resource
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
-from benchmark import checks, scene, tracing, weights, work
+from benchmark import checks, resolve, scene, tracing, weights, work
 from benchmark.reference import geometry
 
 TRACED = {"predict": 6, "train": 4}      # batches / steps in a traced run
@@ -123,10 +124,16 @@ class Run:
         self.config = cell["config_data"]
         self.mix = cell["mix_data"]
         self.rcfg = reference_cfg(self.config)
-        self.record = {"entry": cell["entry"]}
+        self.entry = (ENTRIES.get(cell["entry"])
+                      or resolve.entry(cell["entry"], cell["base"]))
+        self.record = {"entry": self.entry.KIND}
 
     # ------------------------------------------------------------------
-    def setup(self):
+    def setup(self, calibrate=weights.calibrate):
+        """Builds the model and the frames, and loads the seeded weights;
+        `calibrate(sd, points, valid, rcfg)` sets the batch norms'
+        statistics (an entry whose model has batch norms the default does
+        not know passes its own)."""
         torch.manual_seed(self.seed % (2 ** 63))
         self.model = build_model(self.config, self.device)
         self.shapes = state_shapes(self.model)
@@ -134,7 +141,7 @@ class Run:
                                     int(self.config["NUM_POINT_BUDGET"]),
                                     int(self.config["MAX_OBJS"]),
                                     self.device)
-        sd = weights.calibrate(
+        sd = calibrate(
             weights.make(self.shapes, self.seed, self.device),
             self.pool["points"][:1], self.pool["points_valid"][:1], self.rcfg)
         self.model.load_state_dict(sd)
@@ -374,7 +381,9 @@ def run_train(run):
     return attempted, failed, numbers, peak
 
 
-ENTRIES = {"predict": run_predict, "train": run_train}
+# the built-in entries; a cell's other entry is a file (`resolve.entry`)
+ENTRIES = {kind: SimpleNamespace(KIND=kind, run=run)
+           for kind, run in (("predict", run_predict), ("train", run_train))}
 
 
 def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
@@ -383,7 +392,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", t_start=None,
     name, the record of the traced window or None)."""
     t_start = time.perf_counter() if t_start is None else t_start
     run = Run(cell, seed, seconds, trace, device, t_start, fault)
-    attempted, failed, numbers, peak = ENTRIES[cell["entry"]](run)
+    attempted, failed, numbers, peak = run.entry.run(run)
     limits = cell["limits"]
     correct = failed == 0 and all(numbers[k] <= limits[k] for k in limits)
     result = {"correct": bool(correct), "attempted": attempted,

@@ -1,9 +1,10 @@
 """Finds a cell's files by name: `cells/<cell>.json` names its
 configuration (`configs/<config>.json`), its traffic mix
-(`traffic/<mix>.json`), its entry (`predict` or `train`), the chips it asks
-for and the limits of its comparisons; `metrics/<metric>.py` reads one
-per-layer metric.  A new cell, configuration, mix or metric is a new file:
-nothing here lists them."""
+(`traffic/<mix>.json`), its entry (`predict`, `train` or
+`entries/<entry>.py`), the chips it asks for and the limits of its
+comparisons; `metrics/<metric>.py` reads one per-layer metric.  A new cell,
+configuration, mix, entry or metric is a new file: nothing here lists
+them."""
 
 from __future__ import annotations
 
@@ -24,21 +25,39 @@ def cell(name, base=HERE):
     """The cell's dict, with its config and mix dicts under "config_data"
     and "mix_data"."""
     c = _json(base / "cells" / f"{name}.json")
-    c["name"] = name
+    c["name"], c["base"] = name, Path(base)
     c["config_data"] = _json(base / "configs" / f"{c['config']}.json")
     c["mix_data"] = _json(base / "traffic" / f"{c['traffic']}.json")
     return c
 
 
-def metric_reader(name, base=HERE):
-    """The module of `metrics/<name>.py`: `read(record)` -> value or None,
-    and `UNIT`."""
-    path = base / "metrics" / f"{name}.py"
+def _module(kind, name, path):
     spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_"), path)
+        f"benchmark_{kind}_" + name.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def metric_reader(name, base=HERE):
+    """The module of `metrics/<name>.py`: `read(record)` -> value or None,
+    and `UNIT`."""
+    return _module("metric", name, base / "metrics" / f"{name}.py")
+
+
+def entry(name, base=HERE):
+    """The module of `entries/<name>.py` under `base`, for a cell whose
+    entry is not one of the harness's own (`harness.ENTRIES`: `predict`,
+    `train`).  It gives `KIND` ("predict" or "train": the traced record's
+    "entry", which the metric readers key on) and `run(run)` -> (attempted,
+    failed, numbers, memory peak), `run` being a `harness.Run`; it may give
+    `control(cell, seed, device)` -> numbers, the control's readings for
+    `calibrate.py`."""
+    path = Path(base) / "entries" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"entry {name!r} is not built in and there is no "
+                         f"file {path}")
+    return _module("entry", name, path)
 
 
 def benchmark_json(root=ROOT):

@@ -8,7 +8,7 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import resolve
+from benchmark import harness, resolve
 
 ROOT = Path(__file__).resolve().parents[2]
 BJ = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -34,13 +34,23 @@ def test_cell_resolves(name):
     assert (cell["config"], cell["traffic"], cell["chips"]) == (
         w["config"], w["traffic"], w["chips"])
     assert cell["why"] == w["why"] and len(w["why"]) <= 200
-    assert cell["entry"] in ("predict", "train")
+    entry = harness.Run(cell, 0, 0, False, "cpu", 0.0).entry
+    assert entry.KIND in ("predict", "train") and callable(entry.run)
     assert cell["limits"]
     # every cell reports set-up, one other end-to-end and a per-layer metric
     e2e = [m["name"] for m in BJ["end_to_end"]
            if "workloads" not in m or name in m["workloads"]]
     assert "setup_s" in e2e and len(e2e) >= 2
     assert any(name in m.get("workloads", CELLS) for m in BJ["per_layer"])
+
+
+def test_unknown_entry_raises(tmp_path):
+    (tmp_path / "entries").mkdir()
+    with pytest.raises(ValueError, match="not built in"):
+        resolve.entry("no_such_entry", base=tmp_path)
+    cell = dict(resolve.cell(CELLS[0]), entry="no_such_entry")
+    with pytest.raises(ValueError, match="not built in"):
+        harness.Run(cell, 0, 0, False, "cpu", 0.0)
 
 
 @pytest.mark.parametrize("cfg", BJ["configs"], ids=lambda c: c["name"])

@@ -63,7 +63,7 @@ def test_traced_line_keys():
 
 def test_new_cell_as_files_alone(tmp_path):
     base = tmp_path / "benchmark"
-    shutil.copytree(TINY, base)
+    shutil.copytree(TINY, base, ignore=shutil.ignore_patterns("entries"))
     shutil.copytree(HERE.parent / "metrics", base / "metrics")
     mix = json.loads((TINY / "traffic" / "tiny_b2.json").read_text())
     mix.update(batch=1, pool_frames=2)
@@ -76,6 +76,45 @@ def test_new_cell_as_files_alone(tmp_path):
     names = [n for n, _ in resolve.per_layer_metrics("tiny.predict.b1",
                                                      base=base)]
     assert "mfu.predict" in names
+    # a cell that brings its own entry: a two-stage model (the RoI sizes of
+    # the tiny two-stage check on the card)
+    config = json.loads((TINY / "configs" / "tiny.json").read_text())
+    config["MODEL"].update(SECOND_STAGE=True, ROI_BUDGET=16,
+                           ROI_GRID_SIZE=3, ROI_ATTENTION=True)
+    (base / "configs" / "tiny_two_stage.json").write_text(json.dumps(config))
+    (base / "entries").mkdir()
+    shutil.copy(TINY / "entries" / "two_stage_probe.py", base / "entries")
+    cell.update(config="tiny_two_stage", entry="two_stage_probe",
+                why="two-stage probe", limits={"head_gap": 0.001})
+    (base / "cells" / "tiny.two_stage.json").write_text(json.dumps(cell))
+    res = run("tiny.two_stage", base=base)
+    assert res["correct"] and res["attempted"] >= 1
+    assert set(res["checks"]) == {"head_gap"}
+    line = bench_run.result_line("tiny.two_stage", res, None, "cpu", 1)
+    assert line["correct"] and "frames_per_s" in line["metrics"]
+
+
+def test_control_comes_from_the_entry(tmp_path):
+    """`calibrate.control_numbers` takes an entry file's own `control`, and
+    refuses an entry file that gives none."""
+    from benchmark import calibrate
+
+    base = tmp_path / "benchmark"
+    shutil.copytree(TINY, base)
+    probe = (TINY / "entries" / "two_stage_probe.py").read_text()
+    (base / "entries" / "with_control.py").write_text(
+        probe + "\n\ndef control(cell, seed, device):\n"
+        "    return {'head_gap': float(seed)}\n")
+    cell = json.loads((TINY / "cells" / "tiny.predict.json").read_text())
+    for entry in ("with_control", "two_stage_probe"):
+        (base / "cells" / f"tiny.{entry}.json").write_text(
+            json.dumps(dict(cell, entry=entry)))
+    got = calibrate.control_numbers(
+        resolve.cell("tiny.with_control", base=base), 7, "cpu")
+    assert got == {"head_gap": 7.0}
+    with pytest.raises(ValueError, match="gives no control"):
+        calibrate.control_numbers(
+            resolve.cell("tiny.two_stage_probe", base=base), 7, "cpu")
 
 
 def _alter_box(model, pts, valid, **kw):

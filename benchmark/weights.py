@@ -18,17 +18,22 @@ HM_BIAS = -2.19
 
 def fan_in(name, shape):
     """Inputs a unit of this leaf sums over."""
+    if name.endswith((".query.kernel", ".key.kernel", ".value.kernel")):
+        return shape[0]                          # attention (in, heads, dim)
     if name.endswith(".kernel"):                 # sparse (taps, cin, cout)
         return shape[0] * shape[1]
     if len(shape) == 4:
         if "ConvTranspose" in name:              # (cin, cout, kh, kw)
             return shape[0] * shape[2] * shape[3]
         return shape[1] * shape[2] * shape[3]    # (cout, cin, kh, kw)
+    if len(shape) == 2 and name.endswith(".weight"):
+        return shape[1]                          # linear (out, in)
     raise ValueError(f"no fan-in rule for {name} {tuple(shape)}")
 
 
 def make(shapes, seed, device):
-    """shapes {name: shape} -> {name: float32 tensor} from `seed`."""
+    """shapes {name: shape} -> {name: float32 tensor} from `seed`, each
+    drawn leaf scaled by 1 / sqrt(fan_in(name, shape))."""
     drawn = [k for k, s in shapes.items()
              if k.endswith((".kernel", ".weight"))]
     total = sum(math.prod(shapes[k]) for k in drawn)
