@@ -306,11 +306,13 @@ class CenterPoint(nn.Module):
         reg_deltas (N, R, 7)."""
         n, r = proposals["mask"].shape
         rois = proposals["boxes"][..., :7]
-        kps = box_keypoints_bev(rois.reshape(n * r, 7)).reshape(n, r * 5, 2)
-        bev = bev.detach()
-        extra = torch.stack([bilinear_sample_bev(
-            bev[b], kps[b], self.voxel_size, self.pc_range,
-            self.feature_map_stride) for b in range(n)])
+        with profiling.span("bev keypoints"):
+            kps = box_keypoints_bev(rois.reshape(n * r, 7)).reshape(
+                n, r * 5, 2)
+            bev = bev.detach()
+            extra = torch.stack([bilinear_sample_bev(
+                bev[b], kps[b], self.voxel_size, self.pc_range,
+                self.feature_map_stride) for b in range(n)])
         grids = plan_grids(self.grid_zyx)
         levels = [dict(multi_scale[name],
                        features=multi_scale[name]["features"].detach(),

@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from detzero_tpu_torch.core import profiling
 from detzero_tpu_torch.models.layers import (
     MLP, LayerNorm, Linear, MultiHeadDotProductAttention,
 )
@@ -90,42 +91,55 @@ class PDVHead(nn.Module):
         vs = torch.tensor(self.voxel_size, device=rois.device)
         pooled, density = [], 0.0
         for li, lvl in enumerate(levels):
-            nz, ny, nx = lvl["grid_zyx"]
-            coords = torch.floor((flat - pc_min) / (vs * lvl["stride"])).to(
-                torch.int32).flip(-1)
-            hi = torch.tensor([nz - 1, ny - 1, nx - 1], dtype=torch.int32,
-                              device=rois.device)
-            coords = torch.minimum(torch.clamp(coords, min=0), hi)
-            feats, rel, found = [], [], []
-            for b in range(n):
-                zm = lvl["zmask"][b].reshape(-1)
-                idx, fnd = pillars.voxel_query_pillar(
-                    coords[b], lvl["lut"][b], zm, nz, (ny, nx), max_range=1,
-                    nsample=self.nsample)
-                idx = idx.long()
-                found.append(fnd & zm[idx])
-                feats.append(lvl["features"][b][idx])
-                centres = lvl["centroids"][b].reshape(-1, 3)[idx]
-                rel.append(centres - flat[b][:, None, :])
-            found = torch.cat(found)
-            h = torch.cat([torch.cat(feats).to(dtype),
-                           torch.cat(rel).to(dtype)], -1)
-            h = getattr(self, f"pool_mlp{li}")(h, found)
-            h = torch.where(found[..., None], h, float("-inf")).amax(1)
-            pooled.append(torch.where(torch.isfinite(h), h, 0.0))
-            density = density + found.sum(1, keepdim=True).float()
+            with profiling.span("pool", "level", li):
+                h, found = self._pool(li, lvl, flat, pc_min, vs, dtype)
+                pooled.append(h)
+                density = density + found.sum(1, keepdim=True).float()
         log_density = torch.log1p(density).to(dtype)
         pooled = torch.cat(pooled + [log_density], -1).reshape(n * r, g3, -1)
         if self.with_attention:
-            dpos = self.density_pos(log_density.reshape(n * r, g3, 1))
-            q = pooled + dpos
-            pooled = self.LayerNorm_0(pooled + self.grid_attn(q, q, pooled))
-        h = torch.cat([pooled.reshape(n * r, -1),
-                       extra_feats.reshape(n * r, -1)], -1)
-        h = self.shared_fc(h, roi_mask.reshape(-1)).float()
-        cls = self.cls(h)[:, 0].reshape(n, r)
-        reg = self.reg(h).reshape(n, r, -1)
+            with profiling.span("attention"):
+                dpos = self.density_pos(log_density.reshape(n * r, g3, 1))
+                q = pooled + dpos
+                pooled = self.LayerNorm_0(pooled
+                                          + self.grid_attn(q, q, pooled))
+        with profiling.span("shared fc"):
+            h = torch.cat([pooled.reshape(n * r, -1),
+                           extra_feats.reshape(n * r, -1)], -1)
+            h = self.shared_fc(h, roi_mask.reshape(-1)).float()
+            cls = self.cls(h)[:, 0].reshape(n, r)
+            reg = self.reg(h).reshape(n, r, -1)
         return cls, reg
+
+    def _pool(self, li, lvl, flat, pc_min, vs, dtype):
+        """Level li's pooled features (n * M, C) of the grid points flat
+        (n, M, 3), and which of their neighbours were found (n * M,
+        nsample): the voxel query of each sample, the gather, the masked
+        MLP and the max."""
+        n = flat.shape[0]
+        nz, ny, nx = lvl["grid_zyx"]
+        coords = torch.floor((flat - pc_min) / (vs * lvl["stride"])).to(
+            torch.int32).flip(-1)
+        hi = torch.tensor([nz - 1, ny - 1, nx - 1], dtype=torch.int32,
+                          device=flat.device)
+        coords = torch.minimum(torch.clamp(coords, min=0), hi)
+        feats, rel, found = [], [], []
+        for b in range(n):
+            zm = lvl["zmask"][b].reshape(-1)
+            idx, fnd = pillars.voxel_query_pillar(
+                coords[b], lvl["lut"][b], zm, nz, (ny, nx), max_range=1,
+                nsample=self.nsample)
+            idx = idx.long()
+            found.append(fnd & zm[idx])
+            feats.append(lvl["features"][b][idx])
+            centres = lvl["centroids"][b].reshape(-1, 3)[idx]
+            rel.append(centres - flat[b][:, None, :])
+        found = torch.cat(found)
+        h = torch.cat([torch.cat(feats).to(dtype),
+                       torch.cat(rel).to(dtype)], -1)
+        h = getattr(self, f"pool_mlp{li}")(h, found)
+        h = torch.where(found[..., None], h, float("-inf")).amax(1)
+        return torch.where(torch.isfinite(h), h, 0.0), found
 
 
 # ----------------------------------------------------------------------

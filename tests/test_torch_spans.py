@@ -175,6 +175,44 @@ def test_predict_span_tree(tiny):
     assert all(t >= 0 for t in rec.self_ns())
 
 
+@pytest.fixture(scope="module")
+def tiny2(tiny):
+    """The tiny detector with the PDV second stage (chip_smoke's tiny RoI
+    sizes)."""
+    from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
+
+    cfg = dict(CFG, SECOND_STAGE=True, ROI_BUDGET=16, ROI_GRID_SIZE=3,
+               ROI_ATTENTION=True)
+    m = CenterPoint(cfg, 3, pc_range=(-3.2, -3.2, -2.0, 3.2, 3.2, 2.0),
+                    voxel_size=(0.2, 0.2, 0.5), dtype=torch.float32,
+                    device="cpu")
+    m.init_parameters(torch.Generator().manual_seed(0))
+    return m, tiny[1], tiny[2]
+
+
+def test_two_stage_predict_span_tree(tiny2, monkeypatch):
+    """The RoI head's spans nest in its stage: the keypoints, each level's
+    pooling, the attention and the shared layers; the refined boxes stage
+    holds none.  Without a recording the same predict reads no clock."""
+    model, pts, valid = tiny2
+    with profiling.recording() as rec:
+        model.predict(pts[:1], valid[:1])
+    prepare = ["    " + n.replace("vfe", "gather") for n in PREPARE]
+    assert tree(rec) == ["predict", "  sample"] + prepare + [
+        "    stack", "    backbone3d", "    bev+head", "    proposals",
+        "    RoI head", "      bev keypoints", "      pool", "      pool",
+        "      attention", "      shared fc", "    refined boxes"]
+    assert [s.args for s in rec if s.name == "pool"] == [{"level": 0},
+                                                          {"level": 1}]
+    for s in rec:
+        if s.parent is not None:
+            p = rec[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    monkeypatch.setattr(profiling, "_clock", no_clock)
+    out = model.predict(pts[:1], valid[:1])
+    assert out["boxes"].shape == (1, 16, 7)
+
+
 def test_train_step_span_tree(tiny):
     from detzero_tpu_torch.core.optim import build_optimizer
     from detzero_tpu_torch.parallel.trainer import Trainer
