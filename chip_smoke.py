@@ -30,8 +30,13 @@ Phases, one line or more each; any failure raises and the exit code is 1:
   5. training kernels: K4 (rowpad_conv, 'subm'/'down'/'up') and K5
      (rowpad_conv_dw) against their plain versions at every distinct conv
      of the flagship training step (batch 2), with the launches and the
-     launch-weighted ms a step, and K6 (matched-pair IoU) on the
-     1000 pairs per head that the next training step forms;
+     launch-weighted ms a step; K11 (rowpad_bn, the convs' train-mode BN
+     epilogue) on each level's table of the step, for the block's first
+     conv (ReLU) and its second (residual): its apply passes equal to the
+     plain version's when fed the same statistics, its forward and
+     backward pairs timed beside their byte bound, the plain version and
+     the torch epilogue it replaced (library_ms); and K6 (matched-pair IoU)
+     on the 1000 pairs per head that the next training step forms;
   6. train: the flagship training step at batch 2 through Trainer.step
      (adam_onecycle of configs/det_model_cfgs/centerpoint_5sweeps.yaml):
      launch counts of every step, ms/step over 3 timed steps after one
@@ -293,6 +298,8 @@ KERNELS = {
                    "detzero_tpu/ops/pallas_pillar.py:483"),
     "rowpad_conv_sliding": ("detzero_tpu_torch/csrc/rowpad_conv_sliding.cu",
                             "detzero_tpu/ops/pallas_pillar.py:390"),
+    # K11: no TPU kernel (XLA fuses the train-mode BN epilogue there)
+    "rowpad_bn": ("detzero_tpu_torch/csrc/rowpad_bn.cu", None),
 }
 # kernel name -> (module of its wrapper, launch counter)
 COUNTERS = {
@@ -306,10 +313,14 @@ COUNTERS = {
     "boxes_overlap_bev": ("iou_bev", "OVERLAP_LAUNCHES"),
     "rowpad_nbr": ("rowpad_nbr", "LAUNCHES"),
     "rowpad_conv_sliding": ("rowpad_conv", "SLIDING_LAUNCHES"),
+    "rowpad_bn": ("rowpad_bn", "LAUNCHES"),
 }
 # K8: the 10 neighbour maps of each sample's plan, in one launch
 NBR_MAPS = 10
 NBR_LAUNCHES = 1
+# K11: three launches forward and three backward for each of the 20
+# row-pad convs of a training step
+BN_LAUNCHES = 120
 # kernels whose ptxas report must show no stack frame and no spills: the
 # IoU tile kernel (every epilogue, the mask's by name), the neighbour maps,
 # K10's walk and the stream VFE
@@ -1339,11 +1350,180 @@ def check_train_kernels(model, batch, device, stem_only=False, tag=None):
                [conv_case(*c) for c in conv_shapes("K4", stem_cin)[:n]]),
            "rowpad_conv_dw": sum_cases(
                [dw_case(*c) for c in conv_shapes("K5", stem_cin)[:n]])}
+    if not stem_only:
+        rec["rowpad_bn"] = sum_cases(
+            [check_rowpad_bn(plan, lvl, act, n, gen, tag)
+             for lvl in range(4) for act, n in ((True, 3), (False, 2))])
     for name in rec:
         print(f"[{tag}] {name} launch-weighted: "
               f"{rec[name]['weighted_ms']:.3f} ms a step (bound "
               f"{rec[name]['weighted_bound_ms']:.3f} ms)")
     return rec
+
+
+def rowpad_bn_bytes(zmask, c, esize, residual):
+    """Least bytes of K11 forward and backward on a level's table: the conv
+    output (forward) and the gradient, output and conv output (backward)
+    read at the occupied sites, the zmask read, the output and the input
+    gradient written; with the residual, the residual read and its
+    gradient written, and the output read at the empty sites (the
+    residual's gradient there is g_out where relu(residual) > 0)."""
+    n = zmask.numel() * c
+    occ = int(zmask.sum()) * c
+    fwd = occ * esize + zmask.numel() + n * esize
+    bwd = 3 * occ * esize + zmask.numel() + n * esize
+    if residual:
+        fwd += n * esize
+        bwd += (n - occ) * esize + n * esize
+    return fwd + bwd
+
+
+def bn_sums_worst(got, terms, chain):
+    """The float32 per-channel sums `got` (len(terms) * C) against the
+    float64 sums of `terms` (each (ny, nz, C, B)): the worst err / (chain *
+    2^-24 * the sum of the terms' magnitudes), and those magnitudes."""
+    c = terms[0].shape[2]
+    worst, mags = 0.0, []
+    for k, t in enumerate(terms):
+        mag = t.abs().sum((0, 1, 3))
+        err = (got[k * c:(k + 1) * c].double() - t.sum((0, 1, 3))).abs()
+        worst = max(worst, float((err / (chain * 2.0 ** -24 * mag)
+                                  .clamp(min=1e-300)).max()))
+        mags.append(mag)
+    return worst, mags
+
+
+def check_rowpad_bn(plan, lvl, act, n, gen, tag):
+    """Phase 5: K11 on level `lvl`'s table of the training step (bf16 conv
+    output, residual and output gradient zero at the empty sites, as the
+    model's), against its plain version, and timed:
+      * the statistics' and the gradient's sums: the count exact, each
+        float32 sum within its chain of float32 additions
+        (`rowpad_bn.sum_chain`) times 2^-24 of the sum of its terms'
+        magnitudes, against float64; the scale and bias gradients equal
+        to their formula on the kernel's gradient sums;
+      * the apply kernels equal to the plain version's when fed the
+        kernels' sums;
+      * the whole epilogue against the plain version's own (its sums in
+        torch's order): the output and dx within 1e-2 * max(|ref|, 1)
+        (the sums' order, through one bf16 rounding), d_res equal, and
+        the scale and bias gradients within twice the sums' chain bound
+        (the plain version's sums given the kernel's allowance);
+      * the forward and backward pairs timed (each pair's ms, and ms the
+        two), beside the bound of `rowpad_bn_bytes`, the plain version and
+        the torch epilogue it replaced under autograd (library_ms).
+    `act`: the block's first conv (ReLU), else its second (the residual);
+    `n`: such convs a step at this level."""
+    import torch
+    from detzero_tpu_torch.models.layers import MaskedBatchNorm
+    from detzero_tpu_torch.ops import rowpad_bn as rb
+
+    zm = plan[lvl]["rp_zmask"]
+    c = CHANNELS[lvl]
+    y, g_out = masked_table(zm, c, gen), masked_table(zm, c, gen)
+    res = None if act else masked_table(zm, c, gen)
+    scale = torch.rand(c, generator=gen, device=zm.device) + 0.5
+    bias = torch.rand(c, generator=gen, device=zm.device) * 0.6 - 0.3
+    chain = rb.sum_chain(zm.shape[0] * zm.shape[1], zm.shape[2])
+
+    def forward():
+        packed = rb.rowpad_bn_stats(y, zm, c)
+        return rb.rowpad_bn_apply(y, zm, scale, bias, packed, res, act,
+                                  c), packed
+
+    (out, stats), packed = forward()
+
+    def backward():
+        local = rb.rowpad_bn_grad_sums(g_out, out, y, zm, True, c)
+        return rb.rowpad_bn_grad_apply(g_out, out, y, zm, scale, stats,
+                                       local, local, res is not None, True,
+                                       c), local
+
+    (dx, d_res, grads), local = backward()
+    torch.cuda.synchronize()
+    # the sums against float64
+    m = zm[:, :, None, :].double()
+    x = y.double().reshape(m.shape[0], m.shape[1], c, m.shape[3])
+    worst_s, _ = bn_sums_worst(packed[1:], (x * m, x * x * m), chain)
+    cnt_ok = float(packed[0]) == float(zm.sum())
+    g_bn = rb.grad_bn_plain(g_out, out, zm, True, c)[0].double()
+    worst_g, (mag_g, mag_gx) = bn_sums_worst(local, (g_bn, g_bn * x), chain)
+    del m, x, g_bn
+    mean, rstd = stats[0], stats[2]
+    same = (torch.equal(grads[0], rstd * (local[c:] - mean * local[:c]))
+            and torch.equal(grads[1], local[:c]))
+    # the apply passes fed the kernels' sums
+    same = same and torch.equal(out, rb.apply_plain(y, zm, scale, bias,
+                                                    mean, rstd, res, act, c))
+    want = rb.grad_apply_plain(g_out, out, y, zm, scale, mean, rstd,
+                               stats[3, 0], local[:c], local[c:], True, c)
+    same = same and torch.equal(dx, want[0]) and (
+        res is None or torch.equal(d_res, want[1]))
+    del want
+    # the whole epilogue against the plain version's own sums
+    ref, _ = rb._forward_plain(y, zm, scale, bias, res, act, c)
+    err = max_abs(out, ref)
+    tol = 1e-2 * max(float(ref.abs().max()), 1.0)
+    del ref
+    p_dx, p_res, p_scale, p_bias = rb._backward_plain(
+        g_out, out, y, zm, scale, stats, True, None, c)
+    dx_err = max_abs(dx, p_dx)
+    dx_tol = 1e-2 * max(float(p_dx.abs().max()), 1.0)
+    res_same = res is None or torch.equal(d_res, p_res)
+    del p_dx, p_res
+    slack = 2 * chain * 2.0 ** -24
+    d = rstd.double()
+    grad_ratio = max(
+        float(((grads[1].double() - p_bias.double()).abs()
+               / (slack * mag_g).clamp(min=1e-300)).max()),
+        float(((grads[0].double() - p_scale.double()).abs()
+               / ((slack + 4 * 2.0 ** -24) * d
+                  * (mag_gx + mean.double().abs() * mag_g))
+               .clamp(min=1e-300)).max()))
+
+    def plain():
+        o, st = rb._forward_plain(y, zm, scale, bias, res, act, c)
+        return rb._backward_plain(g_out, o, y, zm, scale, st, True, None, c)
+
+    bn = MaskedBatchNorm(c, device=zm.device).train()
+    m4 = zm[:, :, None, :]
+
+    def library():
+        yy = y.detach().requires_grad_()
+        o = bn(yy.reshape(zm.shape[0], zm.shape[1], c, zm.shape[2]),
+               channel_dim=2, mask=m4)
+        if act:
+            o = torch.relu(o)
+        o = torch.where(m4, o, 0.0).reshape(y.shape)
+        if res is not None:
+            o = torch.relu(o + res)
+        return torch.autograd.grad(o, [yy, bn.scale, bn.bias], g_out)
+
+    fwd_ms = time_ms(forward)
+    bwd_ms = time_ms(backward)
+    pms = time_ms(plain, iters=3, warmup=1)
+    lms = time_ms(library, iters=3, warmup=1)
+    name = f"L{lvl} {'act' if act else '+res'} {tuple(y.shape)}"
+    rc = with_bound(dict(case=name, launches=n, max_abs_err=err, tol=tol,
+                         ms=fwd_ms + bwd_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                         plain_ms=pms, library_ms=lms),
+                    rowpad_bn_bytes(zm, c, 2, res is not None), 0, "bf16")
+    torch.cuda.empty_cache()
+    print(f"[{tag}] rowpad_bn {name}, {n} a step: count exact {cnt_ok}, "
+          f"statistics' sums worst err/bound {worst_s:.3g}, gradient's "
+          f"{worst_g:.3g}; apply passes and scale/bias gradients equal to "
+          f"the plain version's on the kernel's sums {same}; against the "
+          f"plain version's own sums: out max_abs_err {err:.3g} (tol "
+          f"{tol:.3g}), dx {dx_err:.3g} (tol {dx_tol:.3g}), d_res equal "
+          f"{res_same}, scale/bias gradients worst err/bound "
+          f"{grad_ratio:.3g}; forward {fwd_ms:.4f} + backward "
+          f"{bwd_ms:.4f} ms vs plain {pms:.3f} ms, torch epilogue "
+          f"{lms:.3f} ms, bound {rc['bound_ms']:.4f} ms ({rc['bound_by']})")
+    if not (cnt_ok and worst_s <= 1.0 and worst_g <= 1.0 and same
+            and err <= tol and dx_err <= dx_tol and res_same
+            and grad_ratio <= 1.0):
+        raise AssertionError(f"rowpad_bn {name} disagrees")
+    return rc
 
 
 def check_pairwise(model, batch, tag="train-kernels"):
@@ -1527,7 +1707,8 @@ def step_launches():
     want = dict.fromkeys(COUNTERS, 0)
     want.update({"stream_rowpad_feats": TRAIN_BATCH, "rowpad_conv": 39,
                  "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
-                 "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
+                 "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH,
+                 "rowpad_bn": BN_LAUNCHES})
     return want
 
 
@@ -1590,7 +1771,8 @@ def check_tiny_train(device):
         held (PERF.md section 7).
     Prints each draw's readings."""
     import torch
-    from detzero_tpu_torch.ops import iou_bev, rowpad_conv, rowpad_nbr
+    from detzero_tpu_torch.ops import iou_bev, rowpad_bn, rowpad_conv, \
+        rowpad_nbr
 
     cpu = build_model(TINY_TRAIN_CFG, TINY_KW, torch.float32, "cpu")
     weights = {k: v.clone() for k, v in cpu.state_dict().items()}
@@ -1608,11 +1790,12 @@ def check_tiny_train(device):
             loss.backward()
             torch.cuda.synchronize()
             n = (rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
-                 iou_bev.PAIRWISE_LAUNCHES, rowpad_nbr.LAUNCHES)
-            if name != "cpu" and n != (39, 20, 2,
-                                       NBR_LAUNCHES * TRAIN_BATCH):
+                 iou_bev.PAIRWISE_LAUNCHES, rowpad_nbr.LAUNCHES,
+                 rowpad_bn.LAUNCHES)
+            if name != "cpu" and n != (39, 20, 2, NBR_LAUNCHES * TRAIN_BATCH,
+                                       BN_LAUNCHES):
                 raise AssertionError(f"tiny train draw {seed} {name}: K4, "
-                                     f"K5, K6, K8 launches {n}")
+                                     f"K5, K6, K8, K11 launches {n}")
             runs[name] = (float(loss.detach()), {
                 k: p.grad for k, p in model.named_parameters()})
         ref = runs["cpu"][0]
@@ -1763,7 +1946,8 @@ def run_two_stage_train(device):
                  "rowpad_conv": 39, "rowpad_conv_dw": 20,
                  "boxes_iou_bev_pairwise": 2,
                  "boxes_overlap_bev": TRAIN_BATCH,
-                 "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
+                 "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH,
+                 "rowpad_bn": BN_LAUNCHES})
     return rec, timed_steps("two-stage train", model, trainer, batch,
                             device, want)[0]
 
@@ -1996,7 +2180,8 @@ def run_sliding_train(device, warm_ref):
         want.update({"stream_rowpad_feats": TRAIN_BATCH,
                      "rowpad_conv_sliding": 17, "rowpad_conv": 22,
                      "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
-                     "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH})
+                     "rowpad_nbr": NBR_LAUNCHES * TRAIN_BATCH,
+                     "rowpad_bn": BN_LAUNCHES})
         launches, _ = timed_steps("sliding train", model, trainer, batch,
                                   device, want)
     finally:
@@ -3752,7 +3937,7 @@ LADDER_PHASE_S = 240.0
 # launches a detector step at batch 1 and a predicted sample
 LADDER_STEP = {"stream_rowpad_feats": 1, "rowpad_conv": 39,
                "rowpad_conv_dw": 20, "boxes_iou_bev_pairwise": 2,
-               "rowpad_nbr": NBR_LAUNCHES}
+               "rowpad_nbr": NBR_LAUNCHES, "rowpad_bn": BN_LAUNCHES}
 LADDER_SAMPLE = {"stream_rowpad_feats": 1, "rowpad_conv_fused": 20,
                  "rowpad_nbr": NBR_LAUNCHES, "nms_walk": 1}
 

@@ -60,6 +60,18 @@ SIGNATURES = {
     "dz_nms_mask": [_P] * 3 + [_I, ctypes.c_float, _P],
     # mask, valid, keep, k, stream
     "dz_nms_walk_bits": [_P] * 3 + [_I, _P],
+    # y, zmask, partial, packed, ny, onz, c, b, zm_nz, max_blocks, f32,
+    # stream
+    "dz_rowpad_bn_stats": [_P] * 4 + [_I] * 7 + [_P],
+    # y, zmask, scale, bias, packed, residual, out, stats, ny, onz, c, b,
+    # zm_nz, act, f32, stream
+    "dz_rowpad_bn_apply": [_P] * 8 + [_I] * 7 + [_P],
+    # g_out, out, y, zmask, partial, packed, ny, onz, c, b, zm_nz,
+    # max_blocks, relu_mask, f32, stream
+    "dz_rowpad_bn_grad_sums": [_P] * 6 + [_I] * 8 + [_P],
+    # g_out, out, y, zmask, scale, stats, local, tot, dx, d_res, grads, ny,
+    # onz, c, b, zm_nz, relu_mask, f32, stream
+    "dz_rowpad_bn_grad_apply": [_P] * 11 + [_I] * 7 + [_P],
 }
 
 

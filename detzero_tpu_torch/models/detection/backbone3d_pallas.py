@@ -6,7 +6,8 @@ which applies the folded BN, the residual, the ReLU and the zmask in its
 epilogue.  Train mode: each conv is `RowpadConv` (kernel K4 forward, or K9
 for the 17 'subm' convs under `rowpad_conv.USE_SLIDING`; K4 and K5
 backward) followed by the masked batch-statistics BN, the ReLU, the
-zmask and the residual as torch ops (`backbone3d_pallas.py:162-177`).  The
+zmask and the residual (`backbone3d_pallas.py:162-177`), fused into kernel
+K11 (`ops/rowpad_bn.py`) forward and backward.  The
 final (3,1,1) z-conv and the BEV densify run on the compact table.  With
 `with_multi_scale` (the PDV second stage) the backbone also returns the
 compact tables of levels 2 and 3 (`x_conv3`, `x_conv4`), per sample.
@@ -32,6 +33,7 @@ from torch import nn
 from detzero_tpu_torch.models.detection.backbone3d_pillar import plan_grids
 from detzero_tpu_torch.models.layers import AutoNames, MaskedBatchNorm
 from detzero_tpu_torch.ops import pillars
+from detzero_tpu_torch.ops.rowpad_bn import rowpad_bn
 from detzero_tpu_torch.ops.rowpad_conv import RowpadConv, rowpad_conv_fused
 from detzero_tpu_torch.ops.rowpad_nbr import rowpad_nbr_maps
 
@@ -111,7 +113,8 @@ def stack_plans(plans):
 class SparseConvBNReLU(nn.Module):
     """One sparse conv + BN (+ ReLU).  kernel_volume 27: the row-padded conv
     (eval: kernel K2 with the folded BN; train: `RowpadConv` and the masked
-    batch BN); 3: the (3,1,1) z-stride conv on the compact table."""
+    batch BN's epilogue K11); 3: the (3,1,1) z-stride conv on the compact
+    table."""
 
     def __init__(self, cin, features, kernel_volume, act=True, device=None):
         super().__init__()
@@ -150,15 +153,10 @@ class SparseConvBNReLU(nn.Module):
                              nbr if nbr_up is None else nbr_up,
                              zmask[:, :onz], zmask_in, nz, cin, cout,
                              z_stride, onz, mode)
-        ny_o, _, b = y.shape
-        m4 = zmask[:, :onz, None, :]
-        y = self.MaskedBatchNorm_0(y.reshape(ny_o, onz, cout, b),
-                                   channel_dim=2, mask=m4)
-        if self.act:
-            y = torch.relu(y)
-        y = torch.where(m4, y, 0.0).reshape(ny_o, onz * cout, b)
-        if residual is not None:
-            y = torch.relu(y + residual.to(y.dtype))
+        bn = self.MaskedBatchNorm_0
+        y, mean, var = rowpad_bn(y, zmask, bn.scale, bn.bias, residual,
+                                 act=self.act, cout=cout)
+        bn.update_running(mean, var)
         return y
 
 

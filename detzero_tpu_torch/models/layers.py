@@ -16,13 +16,14 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from detzero_tpu_torch.core.mesh import data_group
+from detzero_tpu_torch.ops.masked_bn import (BN_EPS, all_reduce_grad_sums,
+                                             bn_grad_input, bn_grad_sums,
+                                             bn_normalize, masked_bn_stats)
 
-BN_EPS = 1e-3
 BN_MOMENTUM = 0.99      # running = m * running + (1 - m) * batch
 
 
@@ -39,91 +40,32 @@ class AutoNames:
         return f"{cls_name}_{n}"
 
 
-def _stat_dims(x, ch):
-    return tuple(d for d in range(x.ndim) if d != ch)
-
-
 class _MaskedBNTrain(torch.autograd.Function):
-    """Train-mode BN of the reference (`layers.py:59-99`) in float32: the
-    statistics come from the sites `mask` marks (every site when None), the
-    variance is the biased max(E[x^2] - mean^2, 0), and the gradient flows
-    through mean and variance, as flax differentiates it.  Under a process
-    group (core/mesh.py) the statistics are the global batch's: the
-    forward all-reduces (cnt, s, ss) and the backward (sum g, sum g x), as
-    the reference's psum over the data axis and its transpose do.  Returns
-    (y in x's dtype, mean, var).  The backward is the analytic one, so
-    autograd keeps only x, not the float32 intermediates (at the first
-    level a float32 copy of the table is about 1 GB)."""
+    """Train-mode BN of the reference (`layers.py:59-99`) in float32:
+    `masked_bn_stats`, `bn_normalize`, and the analytic backward
+    (`bn_grad_sums`, `bn_grad_input`), the statistics and the sums reaching
+    them the global batch's under a process group.  Returns (y in x's
+    dtype, mean, var).  Autograd keeps only x, not the float32
+    intermediates (at the first level a float32 copy of the table is about
+    1 GB)."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, mask, ch):
-        dims = _stat_dims(x, ch)
-        shape = [1] * x.ndim
-        shape[ch] = -1
-        xf = x.float()
-        if mask is None:
-            cnt = torch.tensor(float(x.numel() // x.shape[ch]),
-                               device=x.device)
-            s, ss = xf.sum(dims), (xf * xf).sum(dims)
-        else:
-            xm = xf * mask
-            cnt = mask.sum(dtype=torch.float32)
-            s, ss = xm.sum(dims), (xm * xf).sum(dims)
-            del xm
-        group = data_group()
-        if group is not None:
-            # the statistics of the global batch: one all-reduce of the
-            # packed (cnt, s, ss), as the reference psums them
-            c = s.shape[0]
-            packed = torch.cat([cnt.reshape(1), s, ss])
-            dist.all_reduce(packed, group=group)
-            cnt, s, ss = packed[0], packed[1:c + 1], packed[c + 1:]
-        cnt = torch.clamp(cnt, min=1.0)
-        mean = s / cnt
-        var = torch.clamp(ss / cnt - mean * mean, min=0.0)
-        rstd = torch.rsqrt(var + BN_EPS)
-        y = (xf - mean.reshape(shape)) * rstd.reshape(shape)
-        y = y * scale.reshape(shape) + bias.reshape(shape)
+        cnt, mean, var, rstd = masked_bn_stats(x, mask, ch)
         ctx.save_for_backward(x, mask, scale, mean, rstd, cnt)
         ctx.ch = ch
-        ctx.group = group
+        ctx.group = data_group()
         ctx.mark_non_differentiable(mean, var)
-        return y.to(x.dtype), mean, var
+        return bn_normalize(x, scale, bias, mean, rstd, ch), mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
         x, mask, scale, mean, rstd, cnt = ctx.saved_tensors
-        ch = ctx.ch
-        dims = _stat_dims(x, ch)
-        shape = [1] * x.ndim
-        shape[ch] = -1
-        g = gy.float()
-        xf = x.float()
-        sum_g = g.sum(dims)
-        sum_gx = (g * xf).sum(dims)
-        # sum of g * xhat with xhat = (x - mean) * rstd
-        sum_gxhat = rstd * (sum_gx - mean * sum_g)
-        tot_g, tot_gxhat = sum_g, sum_gxhat
-        if ctx.group is not None:
-            # mean and variance are the global batch's, so every rank's
-            # outputs move them: the gradient reaching them is the sum
-            # over ranks, one all-reduce of the packed (sum_g, sum_gx).
-            # The scale and bias gradients stay this rank's share (the
-            # trainer averages the parameters' gradients).
-            c = sum_g.shape[0]
-            packed = torch.cat([sum_g, sum_gx])
-            dist.all_reduce(packed, group=ctx.group)
-            tot_g = packed[:c]
-            tot_gxhat = rstd * (packed[c:] - mean * tot_g)
-        a = scale * rstd
-        d_var = -0.5 * scale * rstd * rstd * tot_gxhat
-        d_mean = -a * tot_g - 2.0 * mean * d_var
-        # mean = sum(m x) / cnt and E[x^2] = sum(m x^2) / cnt
-        per = (d_mean.reshape(shape) + 2.0 * xf * d_var.reshape(shape)) / cnt
-        if mask is not None:
-            per = per * mask
-        dx = a.reshape(shape) * g + per
-        return dx.to(x.dtype), sum_gxhat, sum_g, None, None
+        sum_g, sum_gx = bn_grad_sums(gy, x, ctx.ch)
+        tot_g, tot_gx = all_reduce_grad_sums(sum_g, sum_gx, ctx.group)
+        dx = bn_grad_input(gy, x, mask, scale, mean, rstd, cnt, tot_g,
+                           tot_gx, ctx.ch)
+        return dx, rstd * (sum_gx - mean * sum_g), sum_g, None, None
 
 
 class MaskedBatchNorm(nn.Module):
@@ -146,6 +88,13 @@ class MaskedBatchNorm(nn.Module):
         sc = self.scale * torch.rsqrt(self.var + BN_EPS)
         return sc, self.bias - self.mean * sc
 
+    def update_running(self, mean, var):
+        """The running statistics after a train-mode batch (decay 0.99)."""
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean
+                            + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+
     def forward(self, x, channel_dim: int = -1, mask=None):
         """Returns the normalised x in x's dtype.  mask: bool, broadcastable
         to x with size 1 on the channel axis; read in train mode only."""
@@ -154,11 +103,7 @@ class MaskedBatchNorm(nn.Module):
             m = None if mask is None else mask.to(torch.float32)
             y, mean, var = _MaskedBNTrain.apply(x, self.scale, self.bias, m,
                                                 ch)
-            with torch.no_grad():
-                self.mean.copy_(BN_MOMENTUM * self.mean
-                                + (1 - BN_MOMENTUM) * mean)
-                self.var.copy_(BN_MOMENTUM * self.var
-                               + (1 - BN_MOMENTUM) * var)
+            self.update_running(mean, var)
             return y
         sc, bi = self.affine()
         shape = [1] * x.ndim

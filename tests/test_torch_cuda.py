@@ -207,6 +207,115 @@ def test_rowpad_conv_dw_kernel(plans, dev, mode, cin, cout, edge):
     assert torch.equal(got, again)
 
 
+# (rows, planes, channels, slots a row, the zmask's planes): the tables of
+# the batch-2 lidar5 training step, levels L0-L3; then row budgets 8, 64 and
+# 192 (a block of more than 256 threads), and a zmask with more planes than
+# the table, as a 'down' conv's slice of its output level's
+BN_CASES = {"L0": (3008, 40, 16, 128, 40), "L1": (1504, 20, 32, 128, 20),
+            "L2": (752, 10, 64, 128, 10), "L3": (376, 5, 128, 128, 5),
+            "b8": (40, 6, 128, 8, 6), "b64": (30, 4, 32, 64, 4),
+            "b192": (48, 3, 128, 192, 3), "planes": (24, 4, 16, 16, 8)}
+
+
+def _lidar_zmask(ny, nz, b, g):
+    """A row's pillars in its first 10-60 slots, each with a site on about
+    two of the planes of the lower half, as the lidar5 scene's."""
+    dev = g.device
+    n = torch.randint(10, 61, (ny, 1, 1), generator=g, device=dev)
+    slots = torch.arange(b, device=dev)[None, None] < n
+    z = torch.arange(nz, device=dev)[None, :, None]
+    ground = torch.randint(nz // 5, nz // 2 + 1, (ny, 1, b), generator=g,
+                           device=dev)
+    return slots & (z >= ground) & (z < ground + 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(BN_CASES))
+def test_rowpad_bn_kernels(dev, case, dtype):
+    """K11 at the training step's table shapes and at the edges of its
+    geometry (BN_CASES), against its plain version run on the same card
+    tensors:
+      * statistics: the count exact, each float32 sum within its chain of
+        float32 additions (the longest run of one thread, the block's
+        slot groups, the reduction's 32 strided rows and 32 partials)
+        times 2^-24 of the sum of its terms' magnitudes, against float64;
+        the gradient sums the same; two launches give the same bits;
+      * the apply passes bit for bit when both are fed the same
+        statistics: the forward from the kernel's mean and rstd, the
+        backward from its sums, for the block's first conv (act) and its
+        second (residual); mean, var and rstd from the same sums within
+        2^-21 relative of the torch formula's (CUDA's rsqrt is not
+        correctly rounded; the kernel's is)."""
+    from detzero_tpu_torch.ops import rowpad_bn as rb
+
+    ny, nz, c, b, zm_nz = BN_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(ny + c)
+    zmask = _lidar_zmask(ny, zm_nz, b, g)
+    shape = (ny, nz * c, b)
+
+    def table(scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale
+                + shift).to(dtype)
+
+    y, res, g_out = table(2.0, 0.5), table(), table()
+    scale = torch.rand(c, generator=g, device=dev) + 0.5
+    bias = torch.rand(c, generator=g, device=dev) * 0.6 - 0.3
+    m = zmask[:, :nz, None, :].double()
+    chain = rb.sum_chain(ny * nz, b)
+
+    def check_sums(got, terms):
+        for k, t in enumerate(terms):
+            want = t.sum((0, 1, 3))
+            tol = chain * 2.0 ** -24 * t.abs().sum((0, 1, 3))
+            err = (got[k * c:(k + 1) * c].double() - want).abs()
+            assert bool((err <= tol).all()), (k, float((err / tol).max()))
+
+    packed = rb.rowpad_bn_stats(y, zmask, c)
+    assert torch.equal(packed, rb.rowpad_bn_stats(y, zmask, c))
+    assert float(packed[0]) == float(zmask[:, :nz].sum())
+    x = y.double().reshape(ny, nz, c, b)
+    check_sums(packed[1:], (x * m, x * x * m))
+    del x
+    for act, with_res in ((True, False), (False, True)):
+        r = res if with_res else None
+        out, stats = rb.rowpad_bn_apply(y, zmask, scale, bias, packed, r,
+                                        act, c)
+        torch.cuda.synchronize()
+        want = rb.apply_plain(y, zmask, scale, bias, stats[0], stats[2], r,
+                              act, c)
+        assert torch.equal(out, want), (act, with_res)
+        cnt = packed[0].clamp(min=1.0)
+        mean = packed[1:c + 1] / cnt
+        var = (packed[c + 1:] / cnt - mean * mean).clamp(min=0.0)
+        for got, ref in ((stats[0], mean), (stats[1], var),
+                         (stats[2], torch.rsqrt(var + 1e-3)),
+                         (stats[3], cnt.expand(c))):
+            assert torch.allclose(got, ref, rtol=2.0 ** -21, atol=0.0)
+        local = rb.rowpad_bn_grad_sums(g_out, out, y, zmask, True, c)
+        assert torch.equal(local, rb.rowpad_bn_grad_sums(g_out, out, y,
+                                                         zmask, True, c))
+        g_bn, _ = rb.grad_bn_plain(g_out, out, zmask, True, c)
+        g_bn = g_bn.double()
+        check_sums(local, (g_bn, g_bn * y.double().reshape(g_bn.shape)))
+        del g_bn
+        dx, d_res, grads = rb.rowpad_bn_grad_apply(
+            g_out, out, y, zmask, scale, stats, local, local, with_res, True,
+            c)
+        torch.cuda.synchronize()
+        want_dx, want_res = rb.grad_apply_plain(
+            g_out, out, y, zmask, scale, stats[0], stats[2], stats[3, 0],
+            local[:c], local[c:], True, c)
+        assert torch.equal(dx, want_dx), (act, with_res)
+        if with_res:
+            assert torch.equal(d_res, want_res)
+        assert torch.equal(grads[0], stats[2] * (local[c:] - stats[0]
+                                                 * local[:c]))
+        assert torch.equal(grads[1], local[:c])
+        torch.cuda.synchronize()
+        del out, dx, d_res, want, want_dx, want_res
+    torch.cuda.empty_cache()
+
+
 def _smoke():
     """chip_smoke.py at the root of the checkout, as a module."""
     spec = importlib.util.spec_from_file_location(
@@ -742,7 +851,7 @@ def test_tiny_train_loss_card_vs_cpu(dev, seed):
       * the bf16 model's gradient norm within 25%: bf16 rounding alone
         leaves its direction uncorrelated with the float32 gradient's."""
     from detzero_tpu_torch.models.detection.centerpoint import CenterPoint
-    from detzero_tpu_torch.ops import iou_bev, rowpad_conv
+    from detzero_tpu_torch.ops import iou_bev, rowpad_bn, rowpad_conv
 
     cfg = {"CLASS_IDS_EACH_HEAD": [[0], [1, 2]],
            "VOXEL_CAPACITIES": (2048, 1024, 512, 256)}
@@ -775,12 +884,16 @@ def test_tiny_train_loss_card_vs_cpu(dev, seed):
         m = CenterPoint(cfg, 3, dtype=dtype, device=dev, **kw)
         m.load_state_dict(cpu.state_dict())
         n0 = (rowpad_conv.CONV_LAUNCHES, rowpad_conv.DW_LAUNCHES,
-              iou_bev.PAIRWISE_LAUNCHES)
+              iou_bev.PAIRWISE_LAUNCHES, rowpad_bn.LAUNCHES,
+              rowpad_bn.FORWARDS, rowpad_bn.BACKWARDS)
         loss_g, _ = m.loss(*[t.to(dev) for t in batch])
         loss_g.backward()
         torch.cuda.synchronize()
         assert (rowpad_conv.CONV_LAUNCHES - n0[0], rowpad_conv.DW_LAUNCHES
                 - n0[1], iou_bev.PAIRWISE_LAUNCHES - n0[2]) == (39, 20, 2)
+        # K11: three launches each way for each of the 20 row-pad convs
+        assert (rowpad_bn.LAUNCHES - n0[3], rowpad_bn.FORWARDS - n0[4],
+                rowpad_bn.BACKWARDS - n0[5]) == (120, 20, 20)
         assert abs(float(loss_g.detach()) - ref) <= 5e-2 * max(abs(ref), 1.0)
         out_share, min_share, norm_ratio = _grad_agreement(
             ref_g, {k: p.grad for k, p in m.named_parameters()})
